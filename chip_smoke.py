@@ -1,0 +1,568 @@
+"""On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
+
+    python3 chip_smoke.py            # every phase, one GPU
+
+Phases, each of which makes the script exit non-zero when it fails:
+
+1. environment: the card's name and power limit, and the build of every
+   CUDA kernel from ``src/repro_torch/kernels/csrc``;
+2. kernels: each of the four kernels against its plain PyTorch version
+   on the card, over uint8/uint16/float32 and both ops, at ragged
+   sub-tiles, N=3 stacks, activity grids with zeros, sentinel slots,
+   NaN inputs, and at the main path's shapes;
+3. main path: ``repro_torch.api.compile`` at paper scale (N=8 ×
+   1024×1024 ``blobs`` images) for long chains, HMAX, opening by
+   reconstruction, ASF₃, a fixed geodesic chain and a row-only
+   reconstruction, each equal to the ``"torch"`` engine on the same
+   card; every kernel must have been launched on that path;
+4. trace: one profiled run of three main-path cases (the device's busy
+   and idle share, and where its time goes);
+5. timing: each kernel, its plain version and one PyTorch yardstick
+   call at the main path's shapes, beside the bound computed from the
+   same inputs.
+
+The third-to-last line of standard output is the card's ``nvidia-smi``
+name and power limit, the second-to-last ``{"kernels": [...]}``, and
+the last ``{"ok": true, "device": {...}}``.  Everything measured also
+goes to ``chiprun_out/chip_smoke.json``.
+"""
+from __future__ import annotations
+
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 non-tensor
+#: ops/s.  The fp32 rate is used for every dtype's min/max count, which
+#: keeps the bound a lower bound.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
+
+#: Where every tensor of the run lives.
+DEVICE = "cuda"
+
+DTYPES = (torch.uint8, torch.uint16, torch.float32)
+OPS = ("erode", "dilate")
+
+
+def log(*parts):
+    print(*parts, flush=True)
+
+
+def smi_line() -> str:
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    return proc.stdout.strip().splitlines()[0] if proc.stdout else "unknown"
+
+
+# ---------------------------------------------------------------------------
+# comparison and timing helpers
+# ---------------------------------------------------------------------------
+
+
+def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Largest |a - b| over positions that are NaN in neither."""
+    a64, b64 = a.double(), b.double()
+    ok = ~(torch.isnan(a64) | torch.isnan(b64))
+    if not bool(ok.any()):
+        return 0.0
+    return float((a64[ok] - b64[ok]).abs().max())
+
+
+def same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit-level agreement: torch.equal, NaN positions as positions."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype.is_floating_point:
+        na, nb = torch.isnan(a), torch.isnan(b)
+        return (torch.equal(na, nb)
+                and torch.equal(a.masked_fill(na, 0), b.masked_fill(nb, 0)))
+    if a.dtype == torch.uint16:
+        return torch.equal(a.view(torch.int16), b.view(torch.int16))
+    return torch.equal(a, b)
+
+
+def sync():
+    torch.cuda.synchronize()
+
+
+def cuda_ms(fn, reps: int = 10) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls (CUDA events)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def rand(shape, dtype, gen, nan_frac=0.0):
+    if dtype.is_floating_point:
+        x = torch.randn(shape, generator=gen, device=DEVICE, dtype=dtype)
+        if nan_frac:
+            x[torch.rand(shape, generator=gen, device=DEVICE) < nan_frac] = (
+                float("nan"))
+        return x
+    hi = torch.iinfo(dtype).max
+    x = torch.randint(0, hi + 1, shape, generator=gen, device=DEVICE,
+                      dtype=torch.int64)
+    if dtype == torch.uint16:  # through the int16 bit view
+        return x.to(torch.int16).view(torch.uint16)
+    return x.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# phase 2: every kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+class Checks:
+    """Kernel-vs-plain comparisons; remembers each kernel's worst error."""
+
+    def __init__(self):
+        self.err: dict = {}
+        self.count = 0
+
+    def record(self, name, got, want, what):
+        for g, w in zip(got, want):
+            if not same(g, w):
+                raise AssertionError(
+                    f"{name} disagrees with its plain version ({what}): "
+                    f"max_abs_err={max_abs_err(g, w)}")
+            if g.dtype != torch.int32:
+                self.err[name] = max(self.err.get(name, 0.0),
+                                     max_abs_err(g, w))
+        self.count += 1
+
+
+def check_kernels(checks: Checks) -> None:
+    from repro_torch.kernels import erode_chain as EC
+    from repro_torch.kernels import geodesic_chain as GC
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    # (n_images, bands_per_image, band_h, width, tile_w, fuse_k): ragged
+    # sub-tiles (cells larger than, and not multiples of, a block's
+    # sub-tile), an N=3 stack, and small cells
+    grids = [(3, 2, 160, 480, 160, 16), (3, 3, 32, 256, 128, 8),
+             (1, 2, 64, 384, 128, 32)]
+    for dtype in DTYPES:
+        nan = 0.01 if dtype.is_floating_point else 0.0
+        for op in OPS:
+            for n, bpi, bh, w, tw, k in grids:
+                h = n * bpi * bh
+                what = f"{dtype} {op} h={h} w={w} band={bh} tile={tw} k={k}"
+                x = rand((h, w), dtype, gen, nan)
+                m = rand((h, w), dtype, gen, nan)
+                args = dict(op=op, fuse_k=k, band_h=bh, bands_per_image=bpi)
+                checks.record("chain_step",
+                              [EC.chain_step(x, **args)],
+                              [EC.chain_step_plain(x, **args)], what)
+                act = (torch.rand((h // bh, 1), generator=gen,
+                                  device=DEVICE) < 0.6).to(torch.int32)
+                checks.record(
+                    "geodesic_chain_step",
+                    GC.geodesic_chain_step(x, m, active=act, **args),
+                    GC.geodesic_chain_step_plain(x, m, active=act, **args),
+                    what)
+                act = (torch.rand((h // bh, w // tw), generator=gen,
+                                  device=DEVICE) < 0.6).to(torch.int32)
+                checks.record(
+                    "geodesic_tile_step",
+                    GC.geodesic_tile_step(x, m, tile_w=tw, active=act,
+                                          **args),
+                    GC.geodesic_tile_step_plain(x, m, tile_w=tw, active=act,
+                                                **args), what)
+                cap = 5
+                fp = rand((cap * (bh + 2 * k), tw + 2 * k), dtype, gen, nan)
+                mp = rand((cap * (bh + 2 * k), tw + 2 * k), dtype, gen, nan)
+                valid = torch.tensor([[1], [0], [1], [1], [0]],
+                                     dtype=torch.int32, device=DEVICE)
+                cargs = dict(op=op, fuse_k=k, band_h=bh, tile_w=tw)
+                checks.record(
+                    "geodesic_compact_step",
+                    GC.geodesic_compact_step(fp, mp, valid, **cargs),
+                    GC.geodesic_compact_step_plain(fp, mp, valid, **cargs),
+                    what)
+    sync()
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the main path at paper scale, through compile()
+# ---------------------------------------------------------------------------
+
+N, SIZE = 8, 1024
+#: the fixed chain of the paper's Fig. 7 workload
+CHAIN = 1500
+
+
+def kernel_modules():
+    from repro_torch.kernels import erode_chain as EC
+    from repro_torch.kernels import geodesic_chain as GC
+
+    return {"chain_step": EC.chain_step,
+            "geodesic_chain_step": GC.geodesic_chain_step,
+            "geodesic_tile_step": GC.geodesic_tile_step,
+            "geodesic_compact_step": GC.geodesic_compact_step}
+
+
+def stack(dtype, n=None, size=None, seed0=0):
+    from repro_torch.data.images import blobs
+
+    n, size = n or N, size or SIZE
+    x = np.stack([blobs(size, size, dtype, seed=seed0 + i) for i in range(n)])
+    return torch.from_numpy(x).to(DEVICE)
+
+
+def main_cases(images):
+    """(name, expr, inputs, plan) of every main-path case."""
+    from repro_torch.api import E, asf_expr, hmax_expr
+    from repro_torch.api import opening_by_reconstruction_expr as obr
+    from repro_torch.core.chain import plan_chain
+
+    f = E.input("f")
+    u8, f32, u16 = images["uint8"], images["float32"], images["uint16"]
+    f32_marker = f32 - 0.15
+    row_plan = plan_chain(SIZE, SIZE, torch.float32, None,
+                          n_images_resident=2, n_images=N, convergent=True,
+                          tile_w=0)
+    rec = E.reconstruct(E.input("marker"), E.input("mask"), op="dilate")
+    return [
+        ("erode1500/uint8", E.erode(CHAIN, f), (u8,), None),
+        ("erode1500/float32", E.erode(CHAIN, f), (f32,), None),
+        ("hmax40/uint8", hmax_expr(40), (u8,), None),
+        ("obr8/uint8", obr(8), (u8,), None),
+        ("asf3/uint8", asf_expr(3), (u8,), None),
+        ("geodesic64/uint8",
+         E.geodesic(E.sat_sub(f, 30), f, 64, op="dilate"), (u8,), None),
+        ("reconstruct-rows/float32", rec, (f32_marker, f32), row_plan),
+        ("hmax40/uint16-2x256", hmax_expr(40), (u16,), None),
+    ]
+
+
+def run_main_path(cases, counters) -> list:
+    """Run every case on both engines; returns per-case rows.  Fails
+    unless each "cuda" result equals the "torch" engine's."""
+    from repro_torch.api import compile
+
+    rows = []
+    for name, expr, inputs, plan in cases:
+        shape, dtype = tuple(inputs[0].shape), inputs[0].dtype
+        exe = compile(expr, shape, dtype, "cuda", plan=plan,
+                      device=DEVICE)
+        oracle = compile(expr, shape, dtype, "torch", device=DEVICE)
+        before = {k: fn.launches for k, fn in counters.items()}
+        sync()
+        t0 = time.perf_counter()
+        out = exe(*inputs)
+        sync()
+        first_s = time.perf_counter() - t0
+        launched = {k: fn.launches - before[k] for k, fn in counters.items()}
+        t0 = time.perf_counter()
+        want = oracle(*inputs)
+        sync()
+        oracle_s = time.perf_counter() - t0
+        if not same(out, want):
+            raise AssertionError(
+                f"main path {name}: cuda engine != torch engine "
+                f"(max_abs_err={max_abs_err(out, want)})")
+        if name.startswith("hmax40/uint8") and not launched[
+                "geodesic_compact_step"]:
+            raise AssertionError("HMAX never reached the compact kernel")
+        rows.append(dict(case=name, shape=list(shape),
+                         dtype=str(dtype).removeprefix("torch."),
+                         plans=[list(p.key) for p in exe.all_plans],
+                         launches=launched, first_run_s=first_s,
+                         torch_engine_s=oracle_s,
+                         run=lambda e=exe, x=inputs: e(*x)))
+        log(f"main path {name}: equal to the torch engine; launches "
+            f"{ {k: v for k, v in launched.items() if v} }; first run "
+            f"{first_s * 1e3:.1f} ms, torch engine {oracle_s * 1e3:.1f} ms")
+    return rows
+
+
+def time_main_path(rows, card: str) -> None:
+    """Steady-state time per run of each case on the cuda engine."""
+    for row in rows:
+        reps = 3
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            row["run"]()
+        sync()
+        ms = (time.perf_counter() - t0) / reps * 1e3
+        row["ms_per_run"] = ms
+        row["images_per_s"] = row["shape"][0] / (ms / 1e3)
+        log(f"time {row['case']}: {ms:.2f} ms/run, "
+            f"{row['images_per_s']:.1f} images/s ({card})")
+
+
+TRACED = ("erode1500/uint8", "hmax40/uint8", "reconstruct-rows/float32")
+
+
+def trace_main_path(rows, card: str) -> list:
+    """One profiled run of a few main-path cases: the device's busy and
+    idle share of the run's wall time, split into the four kernels
+    (``fused_kernel``), other device work (oracle tails, padding,
+    gathers, scatters, flags) and copies."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = []
+    for row in rows:
+        if row["case"] not in TRACED:
+            continue
+        row["run"]()
+        sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            row["run"]()
+            sync()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        split = {"kernels": 0.0, "other": 0.0, "copies": 0.0}
+        top: dict = {}
+        for ev in prof.events():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = ev.time_range.elapsed_us()
+            key = ("kernels" if "fused_kernel" in ev.name else
+                   "copies" if "memcpy" in ev.name.lower() else "other")
+            split[key] += us
+            short = ev.name.replace("(anonymous namespace)::", "")
+            short = short.split("(")[0][:60]
+            top[short] = top.get(short, 0.0) + us
+        busy = sum(split.values())
+        if not busy:
+            raise AssertionError(f"trace of {row['case']}: no device time")
+        rec = dict(case=row["case"], wall_ms=wall_us / 1e3,
+                   busy_ms=busy / 1e3, idle_share=1 - busy / wall_us,
+                   split_ms={k: v / 1e3 for k, v in split.items()},
+                   top_ms=dict(sorted(((k, v / 1e3) for k, v in top.items()),
+                                      key=lambda kv: -kv[1])[:6]))
+        out.append(rec)
+        log(f"trace {rec['case']}: wall {rec['wall_ms']:.2f} ms, device "
+            f"busy {rec['busy_ms']:.2f} ms (idle share "
+            f"{rec['idle_share']:.3f}); split {json.dumps(rec['split_ms'])}; "
+            f"top {json.dumps(rec['top_ms'])} ({card})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4: each kernel at the main path's shapes
+# ---------------------------------------------------------------------------
+
+KERNEL_META = {
+    "chain_step": "src/repro/kernels/erode_chain.py:60",
+    "geodesic_chain_step": "src/repro/kernels/geodesic_chain.py:99",
+    "geodesic_tile_step": "src/repro/kernels/geodesic_chain.py:189",
+    "geodesic_compact_step": "src/repro/kernels/geodesic_chain.py:269",
+}
+
+
+def bound(bytes_moved: float, ops: float):
+    """The least time for the work: ``bytes_moved`` (each input read
+    once, each output written once) at the HBM rate, or ``ops`` (4 min/max
+    per pixel per step, 5 with the mask clamp, over the pixels the
+    function needs — a tiling's halo recompute is not its work) at the
+    peak rate, whichever is longer; with the name of the limit."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def library_chain(xf: torch.Tensor, k: int, mask=None):
+    """K × -max_pool2d(-x) in float32 (and the mask clamp): one PyTorch
+    yardstick for the same function, never used by the port."""
+    import torch.nn.functional as F
+
+    y = xf
+    for _ in range(k):
+        y = F.max_pool2d(y, 3, 1, 1)       # dilation, -inf padding
+        if mask is not None:
+            y = torch.minimum(y, mask)
+    return y
+
+
+def time_kernels(checks: Checks, images) -> dict:
+    """Kernel, plain version and yardstick at the main path's shapes;
+    each kernel is also held against its plain version there."""
+    from repro_torch.core.chain import plan_chain
+    from repro_torch.kernels import erode_chain as EC
+    from repro_torch.kernels import geodesic_chain as GC
+    from repro_torch.kernels import ops as K
+
+    u8 = images["uint8"]
+    out = {}
+    esize = u8.element_size()
+
+    # kernel 1: fixed chains (uint8 plan of E.erode(1500))
+    plan = plan_chain(SIZE, SIZE, torch.uint8, CHAIN, n_images=N)
+    k, bh = plan.fuse_k, plan.band_h
+    x = K._stacked(K._pad(u8, plan, 0))
+    args = dict(op="dilate", fuse_k=k, band_h=bh, bands_per_image=plan.n_bands)
+    checks.record("chain_step", [EC.chain_step(x, **args)],
+                  [EC.chain_step_plain(x, **args)], "main-path shape")
+    xf = x.float().reshape(N, 1, plan.height_pad, plan.width_pad)
+    b_ms, b_by = bound(2 * x.numel() * esize, 4 * k * x.numel())
+    out["chain_step"] = dict(
+        ms=cuda_ms(lambda: EC.chain_step(x, **args)),
+        plain_ms=cuda_ms(lambda: EC.chain_step_plain(x, **args), reps=3),
+        library_ms=cuda_ms(lambda: library_chain(xf, k), reps=3),
+        bound_ms=b_ms, bound_by=b_by,
+        shape=f"({x.shape[0]}, {x.shape[1]}) uint8 K={k} band_h={bh}")
+
+    # kernels 2-4: geodesic marker/mask from HMAX_40
+    mask = K._stacked(K._pad(u8, plan, 0))
+    marker = torch.where(mask > 40, mask - 40, 0).to(torch.uint8)
+    maskf = mask.float().reshape(xf.shape)
+    markf = marker.float().reshape(xf.shape)
+    gplan = plan_chain(SIZE, SIZE, torch.uint8, 64, n_images_resident=2,
+                       n_images=N)
+    k, bh = gplan.fuse_k, gplan.band_h
+    gargs = dict(op="dilate", fuse_k=k, band_h=bh,
+                 bands_per_image=gplan.n_bands)
+    checks.record("geodesic_chain_step",
+                  GC.geodesic_chain_step(marker, mask, **gargs),
+                  GC.geodesic_chain_step_plain(marker, mask, **gargs),
+                  "main-path shape")
+    b_ms, b_by = bound(3 * mask.numel() * esize, 5 * k * mask.numel())
+    out["geodesic_chain_step"] = dict(
+        ms=cuda_ms(lambda: GC.geodesic_chain_step(marker, mask, **gargs)),
+        plain_ms=cuda_ms(lambda: GC.geodesic_chain_step_plain(
+            marker, mask, **gargs), reps=3),
+        library_ms=cuda_ms(lambda: library_chain(markf, k, maskf), reps=3),
+        bound_ms=b_ms, bound_by=b_by,
+        shape=f"({marker.shape[0]}, {marker.shape[1]}) uint8 K={k} "
+              f"band_h={bh}")
+
+    rplan = plan_chain(SIZE, SIZE, torch.uint8, None, n_images_resident=2,
+                       n_images=N, convergent=True)
+    k, bh, tw = rplan.fuse_k, rplan.band_h, rplan.tile_w
+    targs = dict(op="dilate", fuse_k=k, band_h=bh, tile_w=tw,
+                 bands_per_image=rplan.n_bands)
+    checks.record("geodesic_tile_step",
+                  GC.geodesic_tile_step(marker, mask, **targs),
+                  GC.geodesic_tile_step_plain(marker, mask, **targs),
+                  "main-path shape")
+    b_ms, b_by = bound(3 * mask.numel() * esize, 5 * k * mask.numel())
+    out["geodesic_tile_step"] = dict(
+        ms=cuda_ms(lambda: GC.geodesic_tile_step(marker, mask, **targs)),
+        plain_ms=cuda_ms(lambda: GC.geodesic_tile_step_plain(
+            marker, mask, **targs), reps=3),
+        library_ms=cuda_ms(lambda: library_chain(markf, k, maskf), reps=3),
+        bound_ms=b_ms, bound_by=b_by,
+        shape=f"({marker.shape[0]}, {marker.shape[1]}) uint8 K={k} "
+              f"cells {bh}x{tw}, {rplan.total_tiles} active")
+
+    cap = rplan.compact_capacity
+    idx = torch.arange(cap, dtype=torch.int32, device=DEVICE) * 2
+    valid = torch.ones((cap, 1), dtype=torch.int32, device=DEVICE)
+    fp = K._gather_patches(marker, idx, rplan, 0)
+    mp = K._gather_patches(mask, idx, rplan, 0)
+    cargs = dict(op="dilate", fuse_k=k, band_h=bh, tile_w=tw)
+    checks.record("geodesic_compact_step",
+                  GC.geodesic_compact_step(fp, mp, valid, **cargs),
+                  GC.geodesic_compact_step_plain(fp, mp, valid, **cargs),
+                  "main-path shape")
+    ph, pw = bh + 2 * k, tw + 2 * k
+    fpf = fp.float().reshape(cap, 1, ph, pw)
+    mpf = mp.float().reshape(cap, 1, ph, pw)
+    # step s of K needs the centre and K - s pixels around it
+    region = sum((bh + 2 * j) * (tw + 2 * j) for j in range(k))
+    b_ms, b_by = bound((2 * cap * ph * pw + cap * bh * tw) * esize,
+                       5 * region * int(valid.sum()))
+    out["geodesic_compact_step"] = dict(
+        ms=cuda_ms(lambda: GC.geodesic_compact_step(fp, mp, valid, **cargs)),
+        plain_ms=cuda_ms(lambda: GC.geodesic_compact_step_plain(
+            fp, mp, valid, **cargs), reps=3),
+        library_ms=cuda_ms(lambda: library_chain(fpf, k, mpf), reps=3),
+        bound_ms=b_ms, bound_by=b_by,
+        shape=f"{cap} patches of ({ph}, {pw}) uint8 K={k}, all valid")
+    sync()
+    return out
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the GPU",
+              file=sys.stderr)
+        return 1
+    from repro_torch.kernels import _build
+
+    name = torch.cuda.get_device_name(0)
+    smi = smi_line()
+    t0 = time.perf_counter()
+    libs = _build.build_all()
+    build_s = time.perf_counter() - t0
+    log(f"device: {name} | nvidia-smi: {smi} | kernel build "
+        f"{build_s:.1f} s ({', '.join(p.name for p in libs)}) | torch "
+        f"{torch.__version__} cuda {torch.version.cuda}")
+
+    checks = Checks()
+    t0 = time.perf_counter()
+    check_kernels(checks)
+    log(f"kernels: {checks.count} kernel-vs-plain checks equal "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    counters = kernel_modules()
+    t0 = time.perf_counter()
+    images = {"uint8": stack(np.uint8), "float32": stack(np.float32),
+              "uint16": stack(np.uint16, n=2, size=256)}
+    cases = main_cases(images)
+    log(f"main path: inputs ready ({time.perf_counter() - t0:.1f} s)")
+    for fn in counters.values():
+        fn.launches = 0
+    rows = run_main_path(cases, counters)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    missing = [k for k, v in launches.items() if not v]
+    if missing:
+        raise AssertionError(f"main path never launched {missing}")
+    log(f"main path: launches {launches}")
+    time_main_path(rows, smi)
+    traces = trace_main_path(rows, smi)
+
+    timing = time_kernels(checks, images)
+    for kname, t in timing.items():
+        log(f"kernel {kname} [{t['shape']}]: {t['ms']:.3f} ms, plain "
+            f"{t['plain_ms']:.3f} ms, library {t['library_ms']:.3f} ms, "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}) ({smi})")
+
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(
+        {"device": name, "nvidia_smi": smi, "build_s": build_s,
+         "main_path": [{k: v for k, v in r.items() if k != "run"}
+                       for r in rows],
+         "traces": traces, "kernels": timing}, indent=1))
+    log(smi)
+    log(json.dumps({"kernels": [
+        dict(name=k, route="cuda",
+             source="src/repro_torch/kernels/csrc/morph_chain.cu",
+             replaces=KERNEL_META[k], launches=launches[k],
+             max_abs_err=checks.err[k],
+             **{f: timing[k][f] for f in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+        for k in KERNEL_META
+    ]}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

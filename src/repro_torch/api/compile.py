@@ -1,0 +1,216 @@
+"""``compile(expr, shape, dtype, backend, device=...)`` — the one entry
+that turns an expression graph into an
+:class:`~repro_torch.api.executable.Executable` (port of
+``repro.api.compile``).
+
+Compilation lowers the graph (``repro_torch.api.lower``) and binds one
+:class:`~repro_torch.core.chain.ChainPlan` per plan group with the
+reference's planner: a single-class program (all fixed chains, or all
+convergent) shares one plan; a mixed program is specialized per
+contiguous fixed/convergent group (``specialize=None`` auto,
+``True``/``False`` force), with a re-band between groups.  The
+reference's expression optimizer and static verifier are not ported
+yet (ROADMAP.md, queue 1, items 7-8): the graph compiles as given,
+like the reference's ``rewrite=False``.
+
+Executables are cached in a module-level LRU keyed on the graph plus
+the binding ``(shape, dtype, backend, plan, max_chunks, specialize,
+device)``; ``cache_stats()`` exposes the hit/miss counters.
+"""
+from __future__ import annotations
+
+import collections
+import threading
+
+from repro_torch.api.executable import Executable
+from repro_torch.api.expr import Expr, Pipe
+from repro_torch.api.lower import _RESIDENT, lower
+from repro_torch.core.backend import (as_dtype, canonicalize_backend,
+                                      resolve_device)
+from repro_torch.core.chain import plan_chain
+
+#: Executables kept resident.
+CACHE_CAPACITY = 512
+
+#: Segment kinds whose work is convergence-driven (vs fixed-length).
+_CONVERGENT_KINDS = ("reconstruct", "qdt", "gdt")
+
+#: Segment kinds of later slices of the port → their ROADMAP item.
+_NOT_PORTED = {"qdt": "ROADMAP.md, queue 1, item 5 (QDT)",
+               "gdt": "ROADMAP.md, queue 1, item 6 (gdt)"}
+
+_cache: collections.OrderedDict = collections.OrderedDict()
+_lock = threading.Lock()
+_hits = 0
+_misses = 0
+
+
+def compile(expr: Expr, shape, dtype, backend: str | None = None, *,
+            plan=None, max_chunks: int | None = None,
+            specialize: bool | None = None, device=None) -> Executable:
+    """Lower ``expr`` and bind it to a concrete (shape, dtype, backend,
+    device).
+
+    ``shape`` is ``(H, W)`` (the executable then takes and returns 2-D
+    tensors) or ``(N, H, W)`` for batched execution.  ``backend`` is
+    ``"cuda"`` (the default: the padded, scheduled engine on the fused
+    kernels) or ``"torch"`` (the unpadded oracle engine).  ``device``
+    defaults to ``"cuda"`` and raises when no GPU is present; pass
+    ``device="cpu"`` to run on the CPU, where the ``"cuda"`` engine's
+    kernel wrappers run their plain PyTorch versions.  ``plan``
+    overrides the derived plan (validated against the shape; disables
+    per-group specialization); ``max_chunks`` caps the reconstructions'
+    K-chunk iterations.
+    """
+    if isinstance(expr, Pipe):
+        raise TypeError(
+            "got an unapplied pipe — apply it to an input first, e.g. "
+            "E.input('f') >> E.erode(4)"
+        )
+    if not isinstance(expr, Expr):
+        raise TypeError(f"expected an Expr, got {type(expr).__name__}")
+    backend = canonicalize_backend(backend)
+    device = resolve_device(device)
+    shape = tuple(int(s) for s in shape)
+    if len(shape) == 2:
+        shape3, was_2d = (1, *shape), True
+    elif len(shape) == 3:
+        shape3, was_2d = shape, False
+    else:
+        raise ValueError(f"shape must be (H, W) or (N, H, W), got {shape}")
+    dtype = as_dtype(dtype)
+
+    global _hits, _misses
+    key = (expr, shape3, was_2d, dtype, backend, plan, max_chunks,
+           specialize, str(device))
+    with _lock:
+        exe = _cache.get(key)
+        if exe is not None:
+            _hits += 1
+            _cache.move_to_end(key)
+            return exe
+        _misses += 1
+
+    exe = _build(expr, shape3, was_2d, dtype, backend, plan, max_chunks,
+                 specialize, device)
+    with _lock:
+        _cache[key] = exe
+        while len(_cache) > CACHE_CAPACITY:
+            _cache.popitem(last=False)
+    return exe
+
+
+def segment_groups(program) -> tuple:
+    """Partition ``program.segments`` into contiguous plan groups.
+
+    Each group is ``(segment_indices, convergent)``: a maximal run of
+    kernel segments of one work class — fixed-length (chain/geodesic)
+    or convergence-driven (reconstruct) — plus the refill and ``point``
+    segments that prepare operands for it (both attach to the *next*
+    kernel segment; trailing ones join the last group).
+    """
+    groups: list = []
+    current: list = []
+    current_conv: bool | None = None
+    pending: list = []  # refills/points awaiting their consumer's class
+    for i, seg in enumerate(program.segments):
+        if seg.kind in ("refill", "point"):
+            pending.append(i)
+            continue
+        conv = seg.kind in _CONVERGENT_KINDS
+        if current_conv is None or conv == current_conv:
+            current.extend(pending)
+            current.append(i)
+            current_conv = conv
+        else:
+            groups.append((tuple(current), current_conv))
+            current = [*pending, i]
+            current_conv = conv
+        pending = []
+    if pending:
+        current.extend(pending)
+    if current:
+        groups.append((tuple(current), bool(current_conv)))
+    return tuple(groups)
+
+
+def _group_plan(program, idxs, h, w, dtype, n, convergent):
+    """One ChainPlan tuned to a single plan group's segments."""
+    segs = [program.segments[i] for i in idxs]
+    lens = [s.param("n") for s in segs if s.kind in ("chain", "geodesic")]
+    resident = max((_RESIDENT.get(s.kind, 1) for s in segs), default=1)
+    return plan_chain(
+        h, w, dtype,
+        None if convergent else (max(lens) if lens else None),
+        n_images_resident=resident,
+        n_images=n,
+        convergent=convergent,
+    )
+
+
+def _build(expr, shape3, was_2d, dtype, backend, plan, max_chunks,
+           specialize, device):
+    program = lower(expr)
+    for seg in program.segments:
+        if seg.kind in _NOT_PORTED:
+            raise NotImplementedError(
+                f"{seg.kind} segments are not ported to repro_torch yet "
+                f"({_NOT_PORTED[seg.kind]})")
+    n, h, w = shape3
+    if plan is not None:
+        # a mismatched schedule is a caller bug on either engine
+        if plan.n_images != n:
+            raise ValueError(
+                f"plan.n_images={plan.n_images} != batch size {n}"
+            )
+        if plan.height_pad < h or plan.width_pad < w:
+            raise ValueError(
+                f"plan pads ({plan.height_pad}, {plan.width_pad}) "
+                f"smaller than image ({h}, {w})"
+            )
+    seg_plans = None
+    if backend == "cuda" and program.kernel_segments:
+        if plan is None:
+            groups = segment_groups(program)
+            if len(groups) > 1 and specialize is not False:
+                seg_plans = tuple(
+                    (idxs, _group_plan(program, idxs, h, w, dtype, n, conv))
+                    for idxs, conv in groups
+                )
+                plan = seg_plans[0][1]
+            else:
+                lens = [s.param("n") for s in program.segments
+                        if s.kind in ("chain", "geodesic")]
+                plan = plan_chain(
+                    h, w, dtype,
+                    None if program.convergent
+                    else (max(lens) if lens else None),
+                    n_images_resident=program.n_resident,
+                    n_images=n,
+                    convergent=program.convergent,
+                )
+    else:
+        plan = None  # the oracle engine runs unpadded
+    return Executable(program, shape3, dtype, backend, plan, max_chunks,
+                      was_2d, device, seg_plans=seg_plans)
+
+
+def cache_stats() -> dict:
+    """Compile-cache counters."""
+    with _lock:
+        total = _hits + _misses
+        return {
+            "entries": len(_cache),
+            "capacity": CACHE_CAPACITY,
+            "hits": _hits,
+            "misses": _misses,
+            "hit_rate": _hits / total if total else 0.0,
+        }
+
+
+def clear_cache() -> None:
+    global _hits, _misses
+    with _lock:
+        _cache.clear()
+        _hits = 0
+        _misses = 0

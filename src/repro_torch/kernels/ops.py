@@ -1,0 +1,500 @@
+"""Scheduler engine over the fused kernels (port of ``repro.kernels.ops``,
+main-path part).
+
+This module owns the *engine*: padding/stacking layout helpers, the
+fixed-chain drivers (``morph_chain``, ``geodesic_chain``) and the
+active-cell requeue scheduler (``_drive_scheduler`` and the
+``_scheduled_reconstruct`` step bundle) that ``repro_torch.api``'s
+executables drive.  The operator sugar (``erode``/``dilate``/
+``opening``/``closing``/``reconstruct``) builds an expression and
+routes through ``repro_torch.api.compile``.
+
+``backend``:
+  * ``"cuda"`` (``None``) — the padded engine on the fused kernels: the
+    hand-written CUDA kernels on CUDA tensors, their plain PyTorch
+    versions on CPU tensors.
+  * ``"torch"`` — the ``core.morphology`` oracle bodies, unpadded.
+
+Batching: every entry point accepts an (H, W) image or an (N, H, W)
+stack, laid out vertically as one (N·H_pad, W_pad) working array; halo
+pinning at image edges (``bands_per_image``) keeps the images
+independent.
+
+Active-cell requeue scheduling (the paper's Alg. 4, extended to 2-D)
+follows the reference exactly: cells are row bands (``plan.tile_w ==
+0``) or band × column tiles; a cell is requeued for the next K-chunk
+iff it or a Chebyshev neighbour changed; inactive cells are skipped by
+the kernel; below ``plan.compact_threshold`` activity the driver
+gathers the active cells' (band_h+2K, tile_w+2K) patches into a
+workspace of fixed capacity ``plan.compact_capacity`` and scatters the
+centres back.  The reference loop runs on the device
+(``lax.while_loop``); here it is a host loop that reads the activity
+grid back once per chunk — one synchronisation per chunk — and decides
+from that copy whether to continue, whether to compact, and whether
+the cached mask patches still match the active set.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import morphology as M
+from repro_torch.core.backend import canonicalize_backend
+from repro_torch.core.chain import ChainPlan, plan_chain
+from repro_torch.kernels.common import (as_bits, bits_value, cell_view,
+                                        cells_to_plane, from_bits,
+                                        gather_windows, ident_for)
+from repro_torch.kernels.erode_chain import chain_step
+from repro_torch.kernels.geodesic_chain import (geodesic_chain_step,
+                                                geodesic_compact_step,
+                                                geodesic_tile_step)
+
+
+def _api():
+    from repro_torch import api  # lazy: repro_torch.api builds on this
+
+    return api
+
+
+class ReconstructStats(NamedTuple):
+    """Per-run scheduling statistics (the paper's Table 5 chain lengths,
+    extended with the requeue scheduler's cell-level accounting).
+
+    The unit is one *scheduling cell*: a full-width row band for
+    row-only plans, a band × column tile for tiled plans; for tiled
+    plans ``total_bands`` reports ``plan.total_tiles``.  ``converged``
+    is True iff every image's active set emptied within the chunk
+    budget.  Fields are CPU tensors (int32 counts, a bool verdict)."""
+
+    chunks: torch.Tensor           # K-chunk iterations executed
+    active_band_sum: torch.Tensor  # Σ scheduled cells over all chunks
+    total_bands: torch.Tensor      # cells in the padded stack
+    active_per_chunk: torch.Tensor  # int32[max_chunks], 0 past ``chunks``
+    converged: torch.Tensor = torch.tensor(True)
+
+
+# ---------------------------------------------------------------------------
+# layout helpers: batch promotion, padding, vertical stacking
+# ---------------------------------------------------------------------------
+
+
+def _as_stack(f: torch.Tensor):
+    """Promote (H, W) to (1, H, W); pass (N, H, W) through."""
+    if f.ndim == 2:
+        return f[None], True
+    if f.ndim == 3:
+        return f, False
+    raise ValueError(f"expected (H, W) or (N, H, W), got shape "
+                     f"{tuple(f.shape)}")
+
+
+def _pad(f3: torch.Tensor, plan: ChainPlan, fill) -> torch.Tensor:
+    _, h, w = f3.shape
+    padded = F.pad(as_bits(f3), (0, plan.width_pad - w, 0,
+                                 plan.height_pad - h),
+                   value=bits_value(fill, f3.dtype))
+    return from_bits(padded, f3.dtype)
+
+
+def _crop(f3: torch.Tensor, shape, was_2d: bool) -> torch.Tensor:
+    out = f3[:, : shape[-2], : shape[-1]]
+    return out[0] if was_2d else out
+
+
+def _crop3(x2: torch.Tensor, n: int, h: int, w: int) -> torch.Tensor:
+    """(N·H_pad, W_pad) stacked working array → unpadded (N, H, W)."""
+    return _unstacked(x2, n)[:, :h, :w]
+
+
+def _reband(x2: torch.Tensor, n: int, h: int, w: int, plan: ChainPlan,
+            fill) -> torch.Tensor:
+    """Move a stacked working array into ``plan``'s band layout: crop
+    the real image region and re-pad it with ``fill``."""
+    return _stacked(_pad(_crop3(x2, n, h, w), plan, fill))
+
+
+def _stacked(x3: torch.Tensor) -> torch.Tensor:
+    """(N, H_pad, W_pad) → (N·H_pad, W_pad)."""
+    return x3.reshape(x3.shape[0] * x3.shape[1], x3.shape[2])
+
+
+def _unstacked(x2: torch.Tensor, n: int) -> torch.Tensor:
+    return x2.reshape(n, x2.shape[0] // n, x2.shape[1])
+
+
+def _plan_for(f3: torch.Tensor, plan: ChainPlan | None) -> None:
+    """Validate an explicitly supplied plan against the input stack."""
+    if plan is None:
+        return
+    n, h, w = f3.shape
+    if plan.n_images != n:
+        raise ValueError(f"plan.n_images={plan.n_images} != batch size {n}")
+    if plan.height_pad < h or plan.width_pad < w:
+        raise ValueError(
+            f"plan pads ({plan.height_pad}, {plan.width_pad}) smaller than "
+            f"image ({h}, {w})"
+        )
+
+
+# ---------------------------------------------------------------------------
+# active-cell bookkeeping (cell = row band × column tile; n_tiles may be 1)
+# ---------------------------------------------------------------------------
+
+
+def _cell_tile_w(plan: ChainPlan) -> int:
+    """Pixel width of one scheduling cell (full width for row-only)."""
+    return plan.tile_w or plan.width_pad
+
+
+def _dilate_active(flags: torch.Tensor, plan: ChainPlan) -> torch.Tensor:
+    """Requeue set from changed flags: a cell is active next chunk iff it
+    or a Chebyshev neighbour within its image changed (separable
+    row-then-column max = the 3×3 dilation)."""
+    a = flags.reshape(plan.n_images, plan.n_bands, plan.n_tiles)
+    for _ in range(plan.requeue_halo):
+        up = F.pad(a[:, 1:], (0, 0, 0, 1))
+        dn = F.pad(a[:, :-1], (0, 0, 1, 0))
+        a = torch.maximum(a, torch.maximum(up, dn))
+        if plan.n_tiles > 1:
+            lf = F.pad(a[:, :, 1:], (0, 1))
+            rt = F.pad(a[:, :, :-1], (1, 0))
+            a = torch.maximum(a, torch.maximum(lf, rt))
+    return a.reshape(plan.total_bands, plan.n_tiles)
+
+
+def _gather_patches(x2: torch.Tensor, idx: torch.Tensor, plan: ChainPlan,
+                    ident) -> torch.Tensor:
+    """Gather (band_h+2K, tile_w+2K) halo patches for flat cell indices
+    ``idx`` → (C·(band_h+2K), tile_w+2K), pinned at image and array
+    edges; sentinel slots (idx == total_tiles) come back all-``ident``."""
+    tw, k = _cell_tile_w(plan), plan.fuse_k
+    win = gather_windows(x2, idx, band_h=plan.band_h, tile_w=tw, fuse_k=k,
+                         n_tiles=plan.n_tiles,
+                         bands_per_image=plan.n_bands, ident=ident)
+    return win.reshape(-1, tw + 2 * k)
+
+
+def _cell_view(x2: torch.Tensor, plan: ChainPlan) -> torch.Tensor:
+    """(TOTAL_H, W) → (total_tiles, band_h, tile_w) cell-major copy."""
+    return cell_view(x2, plan.band_h, _cell_tile_w(plan))
+
+
+def _gather_mid(x2: torch.Tensor, idx: torch.Tensor,
+                plan: ChainPlan) -> torch.Tensor:
+    """Gather the centre windows of cells ``idx`` → (C·band_h, tile_w);
+    sentinel indices clip to the last cell."""
+    cells = as_bits(_cell_view(x2, plan))
+    got = cells[idx.long().clamp(max=plan.total_tiles - 1)]
+    return from_bits(got, x2.dtype).reshape(-1, _cell_tile_w(plan))
+
+
+def _scatter_mid(x2: torch.Tensor, idx: torch.Tensor, new_mid: torch.Tensor,
+                 plan: ChainPlan) -> torch.Tensor:
+    """Scatter workspace centre windows back into a new array.  Sentinel
+    slots (idx == total_tiles) land in one extra scratch cell that is
+    cut off afterwards — torch's scatter has no drop mode."""
+    bh, tw = plan.band_h, _cell_tile_w(plan)
+    cells = as_bits(_cell_view(x2, plan))
+    cells = torch.cat([cells, cells.new_empty((1, bh, tw))])
+    cells[idx.long()] = as_bits(new_mid).reshape(-1, bh, tw)
+    return from_bits(cells_to_plane(cells[:-1], plan.n_tiles), x2.dtype)
+
+
+def _scatter_flags(ch: torch.Tensor, idx: torch.Tensor, plan: ChainPlan):
+    """Workspace-slot changed flags → full (total_bands, n_tiles) grid;
+    sentinel slots write into a scratch entry that is cut off."""
+    flat = torch.zeros((plan.total_tiles + 1,), dtype=torch.int32,
+                       device=ch.device)
+    flat[idx.long()] = ch.reshape(-1)
+    return flat[:-1].reshape(plan.total_bands, plan.n_tiles)
+
+
+def _active_indices(active: torch.Tensor, plan: ChainPlan):
+    """Dense slot → flat cell index map for the compact workspace: the
+    active cells in ascending order, then the sentinel ``total_tiles``,
+    ``plan.compact_capacity`` slots in all (a fixed size, as
+    ``jnp.nonzero(size=cap, fill_value=total)`` gives; the stable sort
+    needs no host read-back)."""
+    total, cap = plan.total_tiles, plan.compact_capacity
+    flat = active.reshape(-1) > 0
+    order = torch.sort((~flat).to(torch.int32), stable=True).indices[:cap]
+    ok = flat[order]
+    idx = torch.where(ok, order, total).to(torch.int32)
+    return idx, ok.to(torch.int32)[:, None]
+
+
+# ---------------------------------------------------------------------------
+# fixed-length chains: ε_s / δ_s (paper Fig. 7 workload)
+# ---------------------------------------------------------------------------
+
+
+def morph_chain(f: torch.Tensor, n: int, op: str = "erode",
+                backend: str | None = None,
+                plan: ChainPlan | None = None) -> torch.Tensor:
+    """Apply n elementary 3×3 erosions/dilations with K-step fusion on
+    ``f``'s device.  Accepts (H, W) or a batched (N, H, W) stack."""
+    backend = canonicalize_backend(backend)
+    if backend == "torch":
+        return M.erode(f, n) if op == "erode" else M.dilate(f, n)
+
+    f3, was_2d = _as_stack(f)
+    _plan_for(f3, plan)
+    if plan is None:
+        plan = plan_chain(f3.shape[1], f3.shape[2], f.dtype, n,
+                          n_images=f3.shape[0])
+    x2 = _stacked(_pad(f3, plan, ident_for(op, f.dtype)))
+    full, rem = divmod(n, plan.fuse_k)
+    for _ in range(full):
+        x2 = chain_step(x2, op=op, fuse_k=plan.fuse_k, band_h=plan.band_h,
+                        bands_per_image=plan.n_bands)
+    x3 = _unstacked(x2, f3.shape[0])
+    if rem:
+        # tail chunk: oracle steps on the 3-D stack (axis-polymorphic,
+        # cannot leak between images)
+        x3 = M.erode(x3, rem) if op == "erode" else M.dilate(x3, rem)
+    return _crop(x3, f.shape, was_2d)
+
+
+def _compile_unary(build, f: torch.Tensor, backend, device):
+    api = _api()
+    exe = api.compile(build(api.E.input("f")), f.shape, f.dtype, backend,
+                      device=device)
+    return exe(f)
+
+
+def erode(f: torch.Tensor, s: int, backend: str | None = None,
+          device=None):
+    """ε_s via a chain of s elementary erosions (Eq. 4 decomposition)."""
+    return _compile_unary(lambda x: _api().E.erode(s, x), f, backend,
+                          device)
+
+
+def dilate(f: torch.Tensor, s: int, backend: str | None = None,
+           device=None):
+    return _compile_unary(lambda x: _api().E.dilate(s, x), f, backend,
+                          device)
+
+
+def opening(f: torch.Tensor, s: int, backend: str | None = None,
+            device=None):
+    """γ_s = δ_s ∘ ε_s — compiled as one two-segment padded program."""
+    return _compile_unary(lambda x: _api().E.opening(s, x), f, backend,
+                          device)
+
+
+def closing(f: torch.Tensor, s: int, backend: str | None = None,
+            device=None):
+    return _compile_unary(lambda x: _api().E.closing(s, x), f, backend,
+                          device)
+
+
+# ---------------------------------------------------------------------------
+# geodesic chains + reconstruction (Alg. 4)
+# ---------------------------------------------------------------------------
+
+
+def geodesic_chain(f: torch.Tensor, m: torch.Tensor, n: int,
+                   op: str = "erode", backend: str | None = None,
+                   plan: ChainPlan | None = None) -> torch.Tensor:
+    """n elementary geodesic steps (fixed length, Eq. 4) on ``f``'s
+    device.  Accepts (H, W) or a batched (N, H, W) marker/mask stack."""
+    backend = canonicalize_backend(backend)
+    if backend == "torch":
+        step = M.geodesic_erode if op == "erode" else M.geodesic_dilate
+        return step(f, m, n)
+
+    f3, was_2d = _as_stack(f)
+    m3, _ = _as_stack(m)
+    if f3.shape != m3.shape:
+        raise ValueError(f"marker shape {tuple(f.shape)} != mask shape "
+                         f"{tuple(m.shape)}")
+    _plan_for(f3, plan)
+    if plan is None:
+        plan = plan_chain(f3.shape[1], f3.shape[2], f.dtype, n,
+                          n_images_resident=2, n_images=f3.shape[0])
+    ident = ident_for(op, f.dtype)
+    # mask pinning: pad the mask with the identity so pad rows absorb
+    fp = _stacked(_pad(f3, plan, ident))
+    mp = _stacked(_pad(m3, plan, ident))
+    full, rem = divmod(n, plan.fuse_k)
+    for _ in range(full):
+        fp, _ = geodesic_chain_step(fp, mp, op=op, fuse_k=plan.fuse_k,
+                                    band_h=plan.band_h,
+                                    bands_per_image=plan.n_bands)
+    fp3 = _unstacked(fp, f3.shape[0])
+    if rem:
+        step = M.geodesic_erode if op == "erode" else M.geodesic_dilate
+        fp3 = step(fp3, _unstacked(mp, f3.shape[0]), rem)
+    return _crop(fp3, f.shape, was_2d)
+
+
+def scheduler_state0(plan: ChainPlan, device) -> tuple:
+    """Fresh scheduler state: ``(active, img_chunks)`` with every cell
+    active (an int32 (total_bands, n_tiles) grid on ``device``) and no
+    chunks applied (a host (n_images,) counter)."""
+    return (torch.ones((plan.total_bands, plan.n_tiles), dtype=torch.int32,
+                       device=device),
+            np.zeros((plan.n_images,), np.int32))
+
+
+def _drive_scheduler(plan: ChainPlan, data: torch.Tensor, *, full_step,
+                     compact_step=None, gather_const=None, max_chunks: int,
+                     with_stats: bool = False):
+    """Active-cell requeue driver loop (the paper's Alg. 4 work queue).
+
+    ``full_step(data, active) -> (data, flags)`` runs one K-chunk over
+    the full grid; ``compact_step(data, idx, valid, const) -> (data,
+    flags)`` one K-chunk on the compacted workspace of cells ``idx``;
+    ``gather_const(idx)`` gathers the chunk-invariant compact operands
+    (the mask patches), cached while the active set is unchanged.
+    ``flags`` come back as a (total_bands, n_tiles) int32 grid.
+
+    Returns (data, chunks, active_cell_sum, active_per_chunk,
+    img_converged, (active, img_chunks)); ``img_converged`` is True
+    where an image's cells all went inactive within ``max_chunks``.
+    The loop makes the reference's decisions from a host copy of the
+    activity grid, read once per chunk.
+    """
+    total = plan.total_tiles
+    cap = plan.compact_capacity
+    use_compact = (compact_step is not None and plan.compact_threshold > 0.0
+                   and cap < total)
+    with_cache = use_compact and gather_const is not None
+    active, img_chunks = scheduler_state0(plan, data.device)
+    active_h = np.ones((total,), np.int32)
+    per_chunk = np.zeros((max_chunks if with_stats else 0,), np.int32)
+    ckey = cval = None
+    it = asum = 0
+    while active_h.any() and it < max_chunks:
+        count = int(active_h.sum())
+        if use_compact and count <= cap:
+            idx, valid = _active_indices(active, plan)
+            key = active_h > 0
+            if with_cache and (ckey is None or not np.array_equal(key, ckey)):
+                cval, ckey = gather_const(idx), key
+            data, flags = compact_step(data, idx, valid, cval)
+        else:
+            data, flags = full_step(data, active)
+        if with_stats:
+            per_chunk[it] = count
+        img_chunks = img_chunks + active_h.reshape(plan.n_images, -1).any(1)
+        active = _dilate_active(flags, plan)
+        active_h = active.reshape(-1).cpu().numpy()  # the chunk's one sync
+        asum += count
+        it += 1
+    img_converged = ~active_h.reshape(plan.n_images, -1).any(1)
+    return (data, it, asum, torch.from_numpy(per_chunk),
+            torch.from_numpy(img_converged), (active, img_chunks))
+
+
+def _scheduled_reconstruct(fp, mp, plan: ChainPlan, op: str,
+                           max_chunks: int, with_stats: bool):
+    """Reconstruction's step functions for :func:`_drive_scheduler`.
+
+    ``fp``/``mp`` are stacked (TOTAL_H, W_pad) arrays.  Tiled plans run
+    the 2-D grid kernel for full chunks, row-only plans the row-band
+    kernel; compaction is patch-based either way, and the mask's
+    patches go through the driver's ``gather_const`` cache.
+    """
+    ident = ident_for(op, fp.dtype)
+    geo = dict(op=op, fuse_k=plan.fuse_k, band_h=plan.band_h)
+
+    def full_step(x, active):
+        if plan.n_tiles > 1:
+            return geodesic_tile_step(x, mp, tile_w=plan.tile_w,
+                                      active=active,
+                                      bands_per_image=plan.n_bands, **geo)
+        return geodesic_chain_step(x, mp, active=active,
+                                   bands_per_image=plan.n_bands, **geo)
+
+    def gather_const(idx):
+        return _gather_patches(mp, idx, plan, ident)
+
+    def compact_step(x, idx, valid, mask_patch):
+        f_patch = _gather_patches(x, idx, plan, ident)
+        new_mid, ch = geodesic_compact_step(
+            f_patch, mask_patch, valid, tile_w=_cell_tile_w(plan), **geo)
+        return (_scatter_mid(x, idx, new_mid, plan),
+                _scatter_flags(ch, idx, plan))
+
+    return _drive_scheduler(
+        plan, fp, full_step=full_step, compact_step=compact_step,
+        gather_const=gather_const, max_chunks=max_chunks,
+        with_stats=with_stats,
+    )
+
+
+def _reconstruct_impl(f, m, op, max_chunks, plan, with_stats=False):
+    f3, was_2d = _as_stack(f)
+    m3, _ = _as_stack(m)
+    if f3.shape != m3.shape:
+        raise ValueError(f"marker shape {tuple(f.shape)} != mask shape "
+                         f"{tuple(m.shape)}")
+    _plan_for(f3, plan)
+    if plan is None:
+        plan = plan_chain(f3.shape[1], f3.shape[2], f.dtype, None,
+                          n_images_resident=2, n_images=f3.shape[0],
+                          convergent=True)
+    if max_chunks is None:
+        # geodesic paths are bounded by the pixel count; the loop exits
+        # as soon as the active set empties, so the cap costs nothing
+        max_chunks = (f3.shape[1] * f3.shape[2]) // plan.fuse_k + 2
+    ident = ident_for(op, f.dtype)
+    fp = _stacked(_pad(f3, plan, ident))
+    mp = _stacked(_pad(m3, plan, ident))
+    out, chunks, asum, per_chunk, img_conv, _ = _scheduled_reconstruct(
+        fp, mp, plan, op, max_chunks, with_stats)
+    stats = ReconstructStats(
+        chunks=torch.tensor(chunks, dtype=torch.int32),
+        active_band_sum=torch.tensor(asum, dtype=torch.int32),
+        total_bands=torch.tensor(plan.total_tiles, dtype=torch.int32),
+        active_per_chunk=per_chunk,
+        converged=img_conv.all(),
+    )
+    return _crop(_unstacked(out, f3.shape[0]), f.shape, was_2d), stats
+
+
+def reconstruct(f: torch.Tensor, m: torch.Tensor, op: str = "erode",
+                backend: str | None = None, max_chunks: int | None = None,
+                plan: ChainPlan | None = None,
+                device=None) -> torch.Tensor:
+    """ε_rec / δ_rec with kernel-fused convergence detection (Alg. 4),
+    through ``repro_torch.api.compile`` on ``device`` (``None`` is the
+    GPU).  Accepts (H, W) or (N, H, W); each image converges
+    independently."""
+    if f.shape != m.shape:
+        raise ValueError(f"marker shape {tuple(f.shape)} != mask shape "
+                         f"{tuple(m.shape)}")
+    api = _api()
+    expr = api.E.reconstruct(api.E.input("marker"), api.E.input("mask"),
+                             op=op)
+    exe = api.compile(expr, f.shape, f.dtype, backend, plan=plan,
+                      max_chunks=max_chunks, device=device)
+    return exe(f, m)
+
+
+def reconstruct_with_stats(f: torch.Tensor, m: torch.Tensor,
+                           op: str = "erode", backend: str | None = None,
+                           max_chunks: int | None = None,
+                           plan: ChainPlan | None = None):
+    """Like ``reconstruct`` but also returns :class:`ReconstructStats`
+    (chunk count and cell-level requeue accounting).  Engine entry
+    point: ``backend``/``max_chunks``/``plan`` are first-class here."""
+    backend = canonicalize_backend(backend)
+    if backend == "torch":
+        iter_cap = (max_chunks if max_chunks is not None
+                    else f.shape[-1] * f.shape[-2])
+        rec = (M.erode_reconstruct_with_iters if op == "erode"
+               else M.dilate_reconstruct_with_iters)
+        out, iters = rec(f, m, iter_cap)
+        return out, ReconstructStats(
+            chunks=iters, active_band_sum=iters,
+            total_bands=torch.tensor(1, dtype=torch.int32),
+            active_per_chunk=torch.zeros((0,), dtype=torch.int32),
+            # the oracle loop exits early iff a fixpoint was reached
+            converged=iters < iter_cap,
+        )
+    return _reconstruct_impl(f, m, op, max_chunks, plan, with_stats=True)

@@ -1,0 +1,34 @@
+"""Oracles for the ported kernels (port of ``repro.kernels.ref``).
+
+The reference implementations live in ``repro_torch.core.morphology``;
+this module re-exports them under kernel-aligned names so each kernel
+test reads ``kernel_out == ref.<name>(...)`` — bit-exact.  The QDT
+oracle waits for the QDT slice.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.morphology import (  # noqa: F401
+    dilate,
+    dilate3,
+    dilate_reconstruct,
+    erode,
+    erode3,
+    erode_reconstruct,
+    geodesic_dilate,
+    geodesic_erode,
+)
+
+
+def chain(f: torch.Tensor, n: int, op: str) -> torch.Tensor:
+    """n elementary 3×3 filters — oracle for erode_chain.chain_step."""
+    return erode(f, n) if op == "erode" else dilate(f, n)
+
+
+def geodesic_chain(f: torch.Tensor, m: torch.Tensor, n: int,
+                   op: str) -> torch.Tensor:
+    """n elementary geodesic steps — oracle for geodesic_chain_step."""
+    if op == "erode":
+        return geodesic_erode(f, m, n)
+    return geodesic_dilate(f, m, n)

@@ -1,0 +1,149 @@
+"""``repro_torch.api.compile`` against ``repro.api.compile(...,
+rewrite=False)``: every main-path composite on 2-D images and (N, H, W)
+stacks, both port engines against the reference's outputs (its ``"xla"``
+engine, which the reference holds bit-exact with ``"pallas"``), and
+``stats()`` equal to the reference's ``"pallas"`` executable, key for
+key.  Tiny shapes; the port runs on the CPU (``device="cpu"``), where
+the ``"cuda"`` engine's wrappers take their plain PyTorch versions.
+"""
+import numpy as np
+import pytest
+import torch
+
+import repro.api as RA
+import repro_torch.api as TA
+from repro.data.images import blobs
+from repro_torch.core import operators as TOPS
+from repro_torch.kernels import ops as TO
+
+pytestmark = pytest.mark.pipeline
+
+
+BUILDERS = {
+    "erode": lambda api, f: api.E.erode(5, f),
+    "dilate": lambda api, f: api.E.dilate(3, f),
+    "opening": lambda api, f: api.E.opening(2, f),
+    "closing": lambda api, f: api.E.closing(2, f),
+    "hmax": lambda api, f: api.hmax_expr(40, f),
+    "dome": lambda api, f: api.dome_expr(40, f),
+    "hfill": lambda api, f: api.hfill_expr(f),
+    "raobj": lambda api, f: api.raobj_expr(f),
+    "obr": lambda api, f: api.opening_by_reconstruction_expr(3, f),
+    "asf": lambda api, f: api.asf_expr(2, f),
+    "geodesic": lambda api, f: api.E.geodesic(
+        api.E.sat_sub(f, 30), f, 11, op="dilate"),
+}
+
+SHAPES = {"2d": (37, 140), "3d": (2, 30, 45)}
+
+
+def _image(shape, dtype):
+    if len(shape) == 2:
+        return blobs(*shape, dtype=dtype, seed=7)
+    return np.stack([blobs(*shape[1:], dtype=dtype, seed=s)
+                     for s in range(shape[0])])
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=list(SHAPES))
+@pytest.mark.parametrize("name", BUILDERS)
+def test_compile_matches_reference(name, shape):
+    dtype = np.uint8 if shape == "2d" else np.float32
+    if name in ("hmax", "dome") and dtype == np.float32:
+        dtype = np.uint16   # a contrast of 40 means something in uint16
+    shp = SHAPES[shape]
+    f = _image(shp, dtype)
+    ref_expr = BUILDERS[name](RA, RA.E.input("f"))
+    port_expr = BUILDERS[name](TA, TA.E.input("f"))
+    ref = np.asarray(RA.compile(ref_expr, shp, dtype, "xla",
+                                rewrite=False)(f))
+    ref_stats = RA.compile(ref_expr, shp, dtype, "pallas",
+                           rewrite=False).stats()
+    for backend in ("cuda", "torch"):
+        exe = TA.compile(port_expr, shp, dtype, backend, device="cpu")
+        out = exe(torch.from_numpy(f))
+        assert out.dtype == torch.from_numpy(f).dtype
+        assert np.array_equal(ref, out.numpy()), backend
+    stats = TA.compile(port_expr, shp, dtype, device="cpu").stats()
+    ref_stats.pop("backend")
+    assert stats.pop("backend") == "cuda"
+    assert stats == ref_stats
+
+
+def test_two_input_reconstruct_and_run_batch_stats():
+    f = _image((2, 30, 45), np.uint8)
+    marker = np.where(f > 60, f - 60, 0).astype(np.uint8)
+    ref = np.asarray(RA.compile(
+        RA.E.reconstruct(RA.E.input("marker"), RA.E.input("mask")),
+        f.shape, np.uint8, "xla", rewrite=False)(marker, f))
+    expr = TA.E.reconstruct(TA.E.input("marker"), TA.E.input("mask"))
+    exe = TA.compile(expr, f.shape, np.uint8, device="cpu")
+    assert np.array_equal(ref, exe(mask=f, marker=marker).numpy())
+    outs, converged, busy, cap = exe.run_batch_stats(
+        torch.from_numpy(marker), torch.from_numpy(f))
+    assert np.array_equal(ref, outs[0].numpy())
+    (out,) = exe.run_batch(torch.from_numpy(marker), torch.from_numpy(f))
+    assert np.array_equal(ref, out.numpy())
+    assert converged.tolist() == [True, True] and 0 < busy <= cap
+    capped = TA.compile(expr, f.shape, np.uint8, max_chunks=1, device="cpu")
+    _, converged, busy, cap = capped.run_batch_stats(
+        torch.from_numpy(marker), torch.from_numpy(f))
+    assert not converged.all() and busy == cap == 2
+
+
+def test_operator_sugar_and_engine_entry_points():
+    f = torch.from_numpy(_image((2, 30, 45), np.uint8))
+    cpu = dict(device="cpu")
+    for backend in ("cuda", "torch"):
+        assert torch.equal(TOPS.hmax(f, 40, backend, **cpu),
+                           TOPS.hmax(f, 40, **cpu))
+        assert torch.equal(TO.closing(f, 2, backend, **cpu),
+                           TO.closing(f, 2, **cpu))
+    ref = np.asarray(RA.compile(RA.asf_expr(1), (2, 30, 45), np.uint8,
+                                "xla", rewrite=False)(f.numpy()))
+    assert np.array_equal(ref, TOPS.asf(f, 1, **cpu).numpy())
+    assert TOPS.asf_chain_length(3) == 24
+    assert torch.equal(TO.morph_chain(f, 37, "erode"),
+                       TO.morph_chain(f, 37, "erode", "torch"))
+    assert torch.equal(TO.reconstruct(f // 2, f, "dilate", **cpu),
+                       TO.reconstruct(f // 2, f, "dilate", "torch", **cpu))
+
+
+@pytest.mark.parametrize("specialize", (False, True))
+def test_forced_specialization_matches_reference(specialize):
+    f = _image((2, 30, 45), np.uint8)
+    ref_expr = RA.opening_by_reconstruction_expr(3)
+    ref_exe = RA.compile(ref_expr, f.shape, np.uint8, "pallas",
+                         rewrite=False, specialize=specialize)
+    exe = TA.compile(TA.opening_by_reconstruction_expr(3), f.shape,
+                     np.uint8, specialize=specialize, device="cpu")
+    assert [p.key for p in exe.all_plans] == [
+        p.key for p in ref_exe.all_plans]
+    want = RA.compile(ref_expr, f.shape, np.uint8, "xla", rewrite=False)(f)
+    assert np.array_equal(np.asarray(want), exe(f).numpy())
+
+
+def test_unported_segments_raise_not_implemented():
+    f = TA.E.input("f")
+    with pytest.raises(NotImplementedError, match="QDT"):
+        TA.compile(TA.E.qdt(f), (8, 8), np.uint8, device="cpu")
+    with pytest.raises(NotImplementedError, match="gdt"):
+        TA.compile(TA.E.gdt(f, f), (8, 8), np.float32, device="cpu")
+
+
+def test_compile_cache_and_input_checks():
+    TA.clear_cache()
+    expr = TA.hmax_expr(10)
+    a = TA.compile(expr, (9, 9), np.uint8, device="cpu")
+    assert TA.compile(expr, (9, 9), torch.uint8, device="cpu") is a
+    stats = TA.cache_stats()
+    assert (stats["hits"], stats["misses"], stats["entries"]) == (1, 1, 1)
+    with pytest.raises(ValueError, match="shape"):
+        a(torch.zeros((9, 8), dtype=torch.uint8))
+    with pytest.raises(ValueError, match="dtype"):
+        a(torch.zeros((9, 9), dtype=torch.float32))
+    with pytest.raises(ValueError, match="backend"):
+        TA.compile(expr, (9, 9), np.uint8, "xla", device="cpu")
+    with pytest.raises(TypeError, match="pipe"):
+        TA.compile(TA.E.erode(2), (9, 9), np.uint8, device="cpu")
+    assert a.key != TA.compile(expr, (9, 9), np.uint8, "torch",
+                               device="cpu").key
