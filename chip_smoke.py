@@ -5,17 +5,24 @@
 Phases, each of which makes the script exit non-zero when it fails:
 
 1. environment: the card's name and power limit, and the build of every
-   CUDA kernel from ``src/repro_torch/kernels/csrc``;
-2. kernels: each of the four kernels against its plain PyTorch version
-   on the card, over uint8/uint16/float32 and both ops, at ragged
-   sub-tiles, N=3 stacks, activity grids with zeros, sentinel slots,
-   NaN inputs, and at the main path's shapes;
-3. main path: ``repro_torch.api.compile`` at paper scale (N=8 ×
-   1024×1024 ``blobs`` images) for long chains, HMAX, opening by
-   reconstruction, ASF₃, a fixed geodesic chain and a row-only
-   reconstruction, each equal to the ``"torch"`` engine on the same
-   card; every kernel must have been launched on that path;
-4. trace: one profiled run of three main-path cases (the device's busy
+   CUDA kernel from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
+   source, all started together);
+2. kernels: each of the seven kernels against its plain PyTorch version
+   on the card — the four morphology kernels over uint8/uint16/float32
+   and both ops, the three QDT kernels over uint8/uint16/int32 (with its
+   extremes)/float32/float64 — at ragged sub-tiles, N=3 stacks, activity
+   grids with zeros, ragged per-cell QDT offsets, sentinel slots, NaN
+   inputs, and at the main path's shapes;
+3. main path, one run per slice of the port, each with the launch
+   counts set to 0 just before it and read just after; every kernel of
+   the slice must have been launched in its run, and every result must
+   equal the ``"torch"`` engine's on the same card.  At paper scale
+   (N=8 × 1024×1024 ``blobs`` images) through ``repro_torch.api.compile``:
+   the morphology slice's long chains, HMAX, opening by reconstruction,
+   ASF₃, a fixed geodesic chain and a row-only reconstruction; the QDT
+   slice's ``E.qdt`` (uint8, float32, and uint8 under a row-only plan)
+   and ``qdt_l1_expr`` (plus small uint16 cases of both slices);
+4. trace: one profiled run of four main-path cases (the device's busy
    and idle share, and where its time goes);
 5. timing: each kernel, its plain version and one PyTorch yardstick
    call at the main path's shapes, beside the bound computed from the
@@ -200,6 +207,70 @@ def check_kernels(checks: Checks) -> None:
     sync()
 
 
+def qdt_image(shape, dtype, gen):
+    """A QDT check input: NaN in float images, and the int32 extremes,
+    where the residual wraps."""
+    x = rand(shape, dtype, gen, 0.01 if dtype.is_floating_point else 0.0)
+    if dtype == torch.int32:
+        x = torch.randint(-2**31, 2**31, shape, generator=gen, device=DEVICE,
+                          dtype=torch.int64).to(torch.int32)
+        for v in (2**31 - 1, -2**31):
+            x[torch.rand(shape, generator=gen, device=DEVICE) < 0.05] = v
+    return x
+
+
+def check_qdt_kernels(checks: Checks) -> None:
+    from repro_torch.kernels import qdt_chain as QC
+    from repro_torch.kernels.common import qdt_acc_dtype
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(1)
+    grids = [(3, 2, 160, 480, 160, 16), (3, 3, 32, 256, 128, 8),
+             (1, 2, 64, 384, 128, 32)]
+
+    def ints(shape, hi):
+        return torch.randint(0, hi, shape, generator=gen, device=DEVICE,
+                             dtype=torch.int32)
+
+    for dtype in (torch.uint8, torch.uint16, torch.int32, torch.float32,
+                  torch.float64):
+        acc = qdt_acc_dtype(dtype)
+
+        def planes(shape):
+            """Mid-flight r (NaN in float ones) and d planes."""
+            r = (rand(shape, acc, gen, 0.01) if acc.is_floating_point
+                 else ints(shape, 200))
+            return r, ints(shape, 50)
+
+        for n, bpi, bh, w, tw, k in grids:
+            h = n * bpi * bh
+            what = f"{dtype} h={h} w={w} band={bh} tile={tw} k={k}"
+            f = qdt_image((h, w), dtype, gen)
+            r, d = planes((h, w))
+            args = dict(fuse_k=k, band_h=bh, bands_per_image=bpi)
+            for name, grid, extra in (
+                    ("qdt_chain_step", (h // bh, 1), {}),
+                    ("qdt_tile_step", (h // bh, w // tw), {"tile_w": tw})):
+                base, act = ints(grid, 500), ints(grid, 2)
+                kern, plain = getattr(QC, name), getattr(QC, name + "_plain")
+                checks.record(
+                    name, kern(f, r, d, base, active=act, **args, **extra),
+                    plain(f, r, d, base, active=act, **args, **extra), what)
+            cap = 5
+            fp = qdt_image((cap * (bh + 2 * k), tw + 2 * k), dtype, gen)
+            rm, dm = planes((cap * bh, tw))
+            valid = torch.tensor([[1], [0], [1], [1], [0]],
+                                 dtype=torch.int32, device=DEVICE)
+            base = ints((cap, 1), 500)
+            cargs = dict(fuse_k=k, band_h=bh, tile_w=tw)
+            checks.record(
+                "qdt_compact_step",
+                QC.qdt_compact_step(fp, rm, dm, valid, base, **cargs),
+                QC.qdt_compact_step_plain(fp, rm, dm, valid, base, **cargs),
+                what)
+    sync()
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path at paper scale, through compile()
 # ---------------------------------------------------------------------------
@@ -212,11 +283,27 @@ CHAIN = 1500
 def kernel_modules():
     from repro_torch.kernels import erode_chain as EC
     from repro_torch.kernels import geodesic_chain as GC
+    from repro_torch.kernels import qdt_chain as QC
 
     return {"chain_step": EC.chain_step,
             "geodesic_chain_step": GC.geodesic_chain_step,
             "geodesic_tile_step": GC.geodesic_tile_step,
-            "geodesic_compact_step": GC.geodesic_compact_step}
+            "geodesic_compact_step": GC.geodesic_compact_step,
+            "qdt_chain_step": QC.qdt_chain_step,
+            "qdt_tile_step": QC.qdt_tile_step,
+            "qdt_compact_step": QC.qdt_compact_step}
+
+
+#: Each slice of the port: the kernels its main path must launch.
+SLICES = {
+    "morphology": ("chain_step", "geodesic_chain_step",
+                   "geodesic_tile_step", "geodesic_compact_step"),
+    "qdt": ("qdt_chain_step", "qdt_tile_step", "qdt_compact_step"),
+}
+
+#: Main-path cases whose sparse tail must reach a compact kernel.
+MUST_COMPACT = {"hmax40/uint8": "geodesic_compact_step",
+                "qdt/uint8": "qdt_compact_step"}
 
 
 def stack(dtype, n=None, size=None, seed0=0):
@@ -227,9 +314,10 @@ def stack(dtype, n=None, size=None, seed0=0):
     return torch.from_numpy(x).to(DEVICE)
 
 
-def main_cases(images):
-    """(name, expr, inputs, plan) of every main-path case."""
-    from repro_torch.api import E, asf_expr, hmax_expr
+def main_cases(images) -> dict:
+    """Slice → (name, expr, inputs, plan) of each of its main-path
+    cases."""
+    from repro_torch.api import E, asf_expr, hmax_expr, qdt_l1_expr
     from repro_torch.api import opening_by_reconstruction_expr as obr
     from repro_torch.core.chain import plan_chain
 
@@ -239,18 +327,31 @@ def main_cases(images):
     row_plan = plan_chain(SIZE, SIZE, torch.float32, None,
                           n_images_resident=2, n_images=N, convergent=True,
                           tile_w=0)
+    qdt_rows = plan_chain(SIZE, SIZE, torch.uint8, None,
+                          n_images_resident=3, n_images=N, convergent=True,
+                          tile_w=0)
     rec = E.reconstruct(E.input("marker"), E.input("mask"), op="dilate")
-    return [
-        ("erode1500/uint8", E.erode(CHAIN, f), (u8,), None),
-        ("erode1500/float32", E.erode(CHAIN, f), (f32,), None),
-        ("hmax40/uint8", hmax_expr(40), (u8,), None),
-        ("obr8/uint8", obr(8), (u8,), None),
-        ("asf3/uint8", asf_expr(3), (u8,), None),
-        ("geodesic64/uint8",
-         E.geodesic(E.sat_sub(f, 30), f, 64, op="dilate"), (u8,), None),
-        ("reconstruct-rows/float32", rec, (f32_marker, f32), row_plan),
-        ("hmax40/uint16-2x256", hmax_expr(40), (u16,), None),
-    ]
+    return {
+        "morphology": [
+            ("erode1500/uint8", E.erode(CHAIN, f), (u8,), None),
+            ("erode1500/float32", E.erode(CHAIN, f), (f32,), None),
+            ("hmax40/uint8", hmax_expr(40), (u8,), None),
+            ("obr8/uint8", obr(8), (u8,), None),
+            ("asf3/uint8", asf_expr(3), (u8,), None),
+            ("geodesic64/uint8",
+             E.geodesic(E.sat_sub(f, 30), f, 64, op="dilate"), (u8,),
+             None),
+            ("reconstruct-rows/float32", rec, (f32_marker, f32), row_plan),
+            ("hmax40/uint16-2x256", hmax_expr(40), (u16,), None),
+        ],
+        "qdt": [
+            ("qdt/uint8", E.qdt(f), (u8,), None),
+            ("qdt_l1/uint8", qdt_l1_expr(), (u8,), None),
+            ("qdt/float32", E.qdt(f), (f32,), None),
+            ("qdt-rows/uint8", E.qdt(f), (u8,), qdt_rows),
+            ("qdt/uint16-2x256", E.qdt(f), (u16,), None),
+        ],
+    }
 
 
 def run_main_path(cases, counters) -> list:
@@ -275,13 +376,15 @@ def run_main_path(cases, counters) -> list:
         want = oracle(*inputs)
         sync()
         oracle_s = time.perf_counter() - t0
-        if not same(out, want):
-            raise AssertionError(
-                f"main path {name}: cuda engine != torch engine "
-                f"(max_abs_err={max_abs_err(out, want)})")
-        if name.startswith("hmax40/uint8") and not launched[
-                "geodesic_compact_step"]:
-            raise AssertionError("HMAX never reached the compact kernel")
+        outs = out if isinstance(out, tuple) else (out,)
+        wants = want if isinstance(want, tuple) else (want,)
+        for o, w in zip(outs, wants, strict=True):
+            if not same(o, w):
+                raise AssertionError(
+                    f"main path {name}: cuda engine != torch engine "
+                    f"(max_abs_err={max_abs_err(o, w)})")
+        if name in MUST_COMPACT and not launched[MUST_COMPACT[name]]:
+            raise AssertionError(f"{name} never reached the compact kernel")
         rows.append(dict(case=name, shape=list(shape),
                          dtype=str(dtype).removeprefix("torch."),
                          plans=[list(p.key) for p in exe.all_plans],
@@ -310,14 +413,15 @@ def time_main_path(rows, card: str) -> None:
             f"{row['images_per_s']:.1f} images/s ({card})")
 
 
-TRACED = ("erode1500/uint8", "hmax40/uint8", "reconstruct-rows/float32")
+TRACED = ("erode1500/uint8", "hmax40/uint8", "reconstruct-rows/float32",
+          "qdt/uint8")
 
 
 def trace_main_path(rows, card: str) -> list:
     """One profiled run of a few main-path cases: the device's busy and
-    idle share of the run's wall time, split into the four kernels
-    (``fused_kernel``), other device work (oracle tails, padding,
-    gathers, scatters, flags) and copies."""
+    idle share of the run's wall time, split into the port's kernels
+    (``fused_kernel``, ``qdt_kernel``), other device work (oracle tails,
+    padding, gathers, scatters, flags) and copies."""
     from torch.profiler import ProfilerActivity, profile
 
     out = []
@@ -338,7 +442,8 @@ def trace_main_path(rows, card: str) -> list:
             if ev.device_type != torch.autograd.DeviceType.CUDA:
                 continue
             us = ev.time_range.elapsed_us()
-            key = ("kernels" if "fused_kernel" in ev.name else
+            key = ("kernels" if ("fused_kernel" in ev.name
+                                 or "qdt_kernel" in ev.name) else
                    "copies" if "memcpy" in ev.name.lower() else "other")
             split[key] += us
             short = ev.name.replace("(anonymous namespace)::", "")
@@ -364,20 +469,31 @@ def trace_main_path(rows, card: str) -> list:
 # phase 4: each kernel at the main path's shapes
 # ---------------------------------------------------------------------------
 
+_MORPH_CU = "src/repro_torch/kernels/csrc/morph_chain.cu"
+_QDT_CU = "src/repro_torch/kernels/csrc/qdt_chain.cu"
+
+#: kernel → (the TPU kernel it replaces, its source)
 KERNEL_META = {
-    "chain_step": "src/repro/kernels/erode_chain.py:60",
-    "geodesic_chain_step": "src/repro/kernels/geodesic_chain.py:99",
-    "geodesic_tile_step": "src/repro/kernels/geodesic_chain.py:189",
-    "geodesic_compact_step": "src/repro/kernels/geodesic_chain.py:269",
+    "chain_step": ("src/repro/kernels/erode_chain.py:60", _MORPH_CU),
+    "geodesic_chain_step": ("src/repro/kernels/geodesic_chain.py:99",
+                            _MORPH_CU),
+    "geodesic_tile_step": ("src/repro/kernels/geodesic_chain.py:189",
+                           _MORPH_CU),
+    "geodesic_compact_step": ("src/repro/kernels/geodesic_chain.py:269",
+                              _MORPH_CU),
+    "qdt_chain_step": ("src/repro/kernels/qdt_chain.py:96", _QDT_CU),
+    "qdt_tile_step": ("src/repro/kernels/qdt_chain.py:192", _QDT_CU),
+    "qdt_compact_step": ("src/repro/kernels/qdt_chain.py:281", _QDT_CU),
 }
 
 
 def bound(bytes_moved: float, ops: float):
     """The least time for the work: ``bytes_moved`` (each input read
     once, each output written once) at the HBM rate, or ``ops`` (4 min/max
-    per pixel per step, 5 with the mask clamp, over the pixels the
-    function needs — a tiling's halo recompute is not its work) at the
-    peak rate, whichever is longer; with the name of the limit."""
+    per pixel per step, 5 with the mask clamp, 6 with the QDT's subtract
+    and compare, over the pixels the function needs — a tiling's halo
+    recompute is not its work) at the peak rate, whichever is longer;
+    with the name of the limit."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -395,6 +511,108 @@ def library_chain(xf: torch.Tensor, k: int, mask=None):
         if mask is not None:
             y = torch.minimum(y, mask)
     return y
+
+
+def library_qdt(xf: torch.Tensor, k: int, r, d, centre=(Ellipsis,)):
+    """K × -max_pool2d(-x) in float32 with the residual over ``centre``
+    and the two ``torch.where`` masked stores per step: one PyTorch
+    yardstick for a QDT chunk, never used by the port."""
+    import torch.nn.functional as F
+
+    y = xf
+    for step in range(1, k + 1):
+        nxt = -F.max_pool2d(-y, 3, 1, 1)   # erosion, +inf padding
+        res = (y - nxt)[centre]
+        upd = res > r
+        r = torch.where(upd, res, r)
+        d = torch.where(upd, step, d)
+        y = nxt
+    return y, r, d
+
+
+def time_qdt_kernels(checks: Checks, images) -> dict:
+    """The QDT kernels at the main path's shapes: the first chunk of
+    ``E.qdt`` on the uint8 stack (r = d = 0, every cell active), and a
+    full compact workspace; each held against its plain version there."""
+    from repro_torch.core.chain import plan_chain
+    from repro_torch.kernels import ops as K
+    from repro_torch.kernels import qdt_chain as QC
+
+    u8 = images["uint8"]
+    esize, out = u8.element_size(), {}
+    plans = {"qdt_tile_step": plan_chain(SIZE, SIZE, torch.uint8, None,
+                                         n_images_resident=3, n_images=N,
+                                         convergent=True),
+             "qdt_chain_step": plan_chain(SIZE, SIZE, torch.uint8, None,
+                                          n_images_resident=3, n_images=N,
+                                          convergent=True, tile_w=0)}
+    for name, plan in plans.items():
+        k, bh = plan.fuse_k, plan.band_h
+        x = K._stacked(K._pad(u8, plan, 255))
+        r = torch.zeros(x.shape, dtype=torch.int32, device=DEVICE)
+        d = torch.zeros_like(r)
+        grid = (plan.total_bands, plan.n_tiles)
+        base = torch.zeros(grid, dtype=torch.int32, device=DEVICE)
+        act = torch.ones(grid, dtype=torch.int32, device=DEVICE)
+        args = dict(fuse_k=k, band_h=bh, active=act,
+                    bands_per_image=plan.n_bands)
+        if plan.n_tiles > 1:
+            args["tile_w"] = plan.tile_w
+        kern, plain = getattr(QC, name), getattr(QC, name + "_plain")
+        checks.record(name, kern(x, r, d, base, **args),
+                      plain(x, r, d, base, **args), "main-path shape")
+        shape4 = (N, 1, plan.height_pad, plan.width_pad)
+        xf = x.float().reshape(shape4)
+        rf, df = r.float().reshape(shape4), d.reshape(shape4)
+        b_ms, b_by = bound(2 * x.numel() * (esize + 4 + 4),
+                           6 * k * x.numel())
+        out[name] = dict(
+            ms=cuda_ms(lambda: kern(x, r, d, base, **args)),
+            plain_ms=cuda_ms(lambda: plain(x, r, d, base, **args), reps=3),
+            library_ms=cuda_ms(lambda: library_qdt(xf, k, rf, df), reps=3),
+            bound_ms=b_ms, bound_by=b_by,
+            shape=f"({x.shape[0]}, {x.shape[1]}) uint8 K={k} cells "
+                  f"{bh}x{plan.tile_w or plan.width_pad}, "
+                  f"{plan.total_tiles} active")
+
+    plan = plans["qdt_tile_step"]
+    k, bh, tw = plan.fuse_k, plan.band_h, plan.tile_w
+    cap = plan.compact_capacity
+    x = K._stacked(K._pad(u8, plan, 255))
+    r = torch.zeros(x.shape, dtype=torch.int32, device=DEVICE)
+    idx = torch.arange(cap, dtype=torch.int32, device=DEVICE) * 2
+    fp = K._gather_patches(x, idx, plan, 255)
+    rm, dm = K._gather_mid(r, idx, plan), K._gather_mid(r, idx, plan)
+    valid = torch.ones((cap, 1), dtype=torch.int32, device=DEVICE)
+    base = torch.zeros((cap, 1), dtype=torch.int32, device=DEVICE)
+    cargs = dict(fuse_k=k, band_h=bh, tile_w=tw)
+    checks.record("qdt_compact_step",
+                  QC.qdt_compact_step(fp, rm, dm, valid, base, **cargs),
+                  QC.qdt_compact_step_plain(fp, rm, dm, valid, base,
+                                            **cargs),
+                  "main-path shape")
+    ph, pw = bh + 2 * k, tw + 2 * k
+    fpf = fp.float().reshape(cap, 1, ph, pw)
+    rmf, dmf = (rm.float().reshape(cap, 1, bh, tw),
+                dm.reshape(cap, 1, bh, tw))
+    centre = (Ellipsis, slice(k, k + bh), slice(k, k + tw))
+    # step s of K needs the centre and K - s pixels around it
+    region = sum((bh + 2 * j) * (tw + 2 * j) for j in range(k))
+    n_valid = int(valid.sum())
+    b_ms, b_by = bound(cap * ph * pw * esize + cap * bh * tw * esize
+                       + 2 * rm.numel() * (4 + 4),
+                       (4 * region + 2 * k * bh * tw) * n_valid)
+    out["qdt_compact_step"] = dict(
+        ms=cuda_ms(lambda: QC.qdt_compact_step(fp, rm, dm, valid, base,
+                                               **cargs)),
+        plain_ms=cuda_ms(lambda: QC.qdt_compact_step_plain(
+            fp, rm, dm, valid, base, **cargs), reps=3),
+        library_ms=cuda_ms(lambda: library_qdt(fpf, k, rmf, dmf, centre),
+                           reps=3),
+        bound_ms=b_ms, bound_by=b_by,
+        shape=f"{cap} patches of ({ph}, {pw}) uint8 K={k}, all valid")
+    sync()
+    return out
 
 
 def time_kernels(checks: Checks, images) -> dict:
@@ -515,6 +733,7 @@ def main() -> int:
     checks = Checks()
     t0 = time.perf_counter()
     check_kernels(checks)
+    check_qdt_kernels(checks)
     log(f"kernels: {checks.count} kernel-vs-plain checks equal "
         f"({time.perf_counter() - t0:.1f} s)")
 
@@ -524,18 +743,24 @@ def main() -> int:
               "uint16": stack(np.uint16, n=2, size=256)}
     cases = main_cases(images)
     log(f"main path: inputs ready ({time.perf_counter() - t0:.1f} s)")
-    for fn in counters.values():
-        fn.launches = 0
-    rows = run_main_path(cases, counters)
-    launches = {k: fn.launches for k, fn in counters.items()}
-    missing = [k for k, v in launches.items() if not v]
-    if missing:
-        raise AssertionError(f"main path never launched {missing}")
-    log(f"main path: launches {launches}")
+    rows, launches = [], {}
+    for slice_name, kernels in SLICES.items():
+        for fn in counters.values():
+            fn.launches = 0
+        rows += run_main_path(cases[slice_name], counters)
+        launches.update({k: counters[k].launches for k in kernels})
+        missing = [k for k in kernels if not launches[k]]
+        if missing:
+            raise AssertionError(
+                f"main path of the {slice_name} slice never launched "
+                f"{missing}")
+        log(f"main path ({slice_name}): launches "
+            f"{ {k: launches[k] for k in kernels} }")
     time_main_path(rows, smi)
     traces = trace_main_path(rows, smi)
 
     timing = time_kernels(checks, images)
+    timing.update(time_qdt_kernels(checks, images))
     for kname, t in timing.items():
         log(f"kernel {kname} [{t['shape']}]: {t['ms']:.3f} ms, plain "
             f"{t['plain_ms']:.3f} ms, library {t['library_ms']:.3f} ms, "
@@ -550,9 +775,8 @@ def main() -> int:
          "traces": traces, "kernels": timing}, indent=1))
     log(smi)
     log(json.dumps({"kernels": [
-        dict(name=k, route="cuda",
-             source="src/repro_torch/kernels/csrc/morph_chain.cu",
-             replaces=KERNEL_META[k], launches=launches[k],
+        dict(name=k, route="cuda", source=KERNEL_META[k][1],
+             replaces=KERNEL_META[k][0], launches=launches[k],
              max_abs_err=checks.err[k],
              **{f: timing[k][f] for f in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})

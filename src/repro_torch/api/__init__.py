@@ -19,12 +19,13 @@ from repro_torch.api.compile import cache_stats, clear_cache, compile
 from repro_torch.api.executable import Executable
 from repro_torch.api.expr import (E, Expr, Pipe, asf_expr, dome_expr,
                                   hfill_expr, hmax_expr,
-                                  opening_by_reconstruction_expr, raobj_expr)
+                                  opening_by_reconstruction_expr,
+                                  qdt_l1_expr, raobj_expr)
 from repro_torch.api.lower import Program, lower
 
 __all__ = [
     "E", "Expr", "Pipe", "Program", "Executable",
     "compile", "lower", "cache_stats", "clear_cache",
     "hmax_expr", "dome_expr", "hfill_expr", "raobj_expr",
-    "opening_by_reconstruction_expr", "asf_expr",
+    "opening_by_reconstruction_expr", "asf_expr", "qdt_l1_expr",
 ]

@@ -36,8 +36,7 @@ CACHE_CAPACITY = 512
 _CONVERGENT_KINDS = ("reconstruct", "qdt", "gdt")
 
 #: Segment kinds of later slices of the port → their ROADMAP item.
-_NOT_PORTED = {"qdt": "ROADMAP.md, queue 1, item 5 (QDT)",
-               "gdt": "ROADMAP.md, queue 1, item 6 (gdt)"}
+_NOT_PORTED = {"gdt": "ROADMAP.md, queue 1, item 6 (gdt)"}
 
 _cache: collections.OrderedDict = collections.OrderedDict()
 _lock = threading.Lock()

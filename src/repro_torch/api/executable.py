@@ -6,8 +6,9 @@ as **one padded program per plan group**: every canonical input is
 padded to the group's :class:`~repro_torch.core.chain.ChainPlan` once,
 all kernel segments run on the vertically stacked ``(N·H_pad, W_pad)``
 working arrays (chains through ``chain_step``, fixed geodesic chains
-through ``geodesic_chain_step``, reconstructions through the requeue
-scheduler in ``kernels/ops.py``), and outputs are cropped once.
+through ``geodesic_chain_step``, reconstructions and the QDT through
+the requeue scheduler in ``kernels/ops.py``), and outputs are cropped
+once.
 ``refill`` segments re-pad in place where a consumer needs a different
 absorbing identity.  Specialized mixed programs re-band between plan
 groups exactly as the reference does.
@@ -27,6 +28,7 @@ import torch
 
 from repro_torch.api.lower import Program, eval_pointwise
 from repro_torch.core import morphology as M
+from repro_torch.core import operators as OPS
 from repro_torch.core.backend import dtype_name
 from repro_torch.kernels import ops as K
 from repro_torch.kernels.common import fill_where, ident_for
@@ -49,6 +51,8 @@ def _seg_need_fill(seg) -> str:
     form at a group boundary."""
     if seg.kind == "refill":
         return seg.param("fill")
+    if seg.kind == "qdt":
+        return "hi"  # the QDT iterates erosion
     if seg.kind == "point":
         # point outputs are re-masked by a refill before any consumer
         return "lo"
@@ -122,7 +126,7 @@ class Executable:
         """Run phase plus the convergence watchdog's verdict and chunk
         utilization: ``(outputs, converged, busy_chunks, cap_chunks)``.
         ``converged`` is a (N,) bool tensor, False for images whose
-        reconstruction exhausted the chunk budget; ``busy_chunks`` /
+        reconstruction or QDT exhausted the chunk budget; ``busy_chunks`` /
         ``cap_chunks`` count the scheduler chunks the images consumed vs
         the chunks the batch held every image for (both 0 without a
         convergence-driven segment, and for the oracle engine, which
@@ -238,6 +242,9 @@ class Executable:
                 rec = (M.erode_reconstruct if seg.param("op") == "erode"
                        else M.dilate_reconstruct)
                 vals[seg.dsts[0]] = rec(vals[seg.srcs[0]], vals[seg.srcs[1]])
+            elif seg.kind == "qdt":
+                vals[seg.dsts[0]], vals[seg.dsts[1]] = OPS.qdt_raw(
+                    vals[seg.srcs[0]])
             elif seg.kind == "point":
                 env = {f"__p{j}": vals[s]
                        for j, s in enumerate(seg.srcs)}
@@ -352,6 +359,16 @@ class Executable:
                 # busy = chunks each image consumed; capacity = chunks
                 # the batch held every image for
                 util.append((int(state[1].sum()), it * plan.n_images))
+        elif seg.kind == "qdt":
+            _, r, d, img_conv, state = K._scheduled_qdt(
+                vals[seg.srcs[0]], plan, self._budget_qdt(plan))
+            vals[seg.dsts[0]], vals[seg.dsts[1]] = d, r
+            if conv is not None:
+                conv.append(img_conv)
+            if util is not None:
+                # capacity: the longest image's chunks, for every image
+                util.append((int(state[1].sum()),
+                             int(state[1].max()) * plan.n_images))
         elif seg.kind == "point":
             env = {f"__p{j}": vals[s] for j, s in enumerate(seg.srcs)}
             vals[seg.dsts[0]] = eval_pointwise(seg.param("expr"), env, {}, {})

@@ -460,9 +460,9 @@ def eval_pointwise(node: Expr, inputs: dict, kernel_vals: dict, memo: dict):
             val = OPS.hfill_marker(args[0])
         elif kind == "raobj_marker":
             val = OPS.raobj_marker(args[0])
-        else:  # qdt_regularize waits for the QDT slice
-            raise NotImplementedError(
-                f"pointwise kind {kind!r} is not ported yet (ROADMAP.md, "
-                "queue 1, item 5: the QDT)")
+        elif kind == "qdt_regularize":
+            val = OPS.qdt_regularize(args[0])
+        else:  # pragma: no cover - Expr.__post_init__ guards kinds
+            raise LoweringError(f"unhandled pointwise kind {kind!r}")
     memo[node] = val
     return val

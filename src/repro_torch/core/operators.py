@@ -7,13 +7,17 @@ Two kinds of things, as in the reference:
   (``sat_sub``/``sat_add``/``sub``/``ge``, the HFILL/RAOBJ marker
   derivations), in plain torch with the reference's dtype semantics;
 * the **operator sugar** (``hmax``, ``dome``, ``hfill``, ``raobj``,
-  ``opening_by_reconstruction``, ``asf``): each builds its graph with
-  the builders in ``repro_torch.api.expr`` and runs it through
-  ``repro_torch.api.compile`` on ``device`` (``None`` is the GPU;
-  the input is moved there, and the CPU must be asked for).
+  ``opening_by_reconstruction``, ``asf``, ``qdt``): each builds its
+  graph with the builders in ``repro_torch.api.expr`` and runs it
+  through ``repro_torch.api.compile`` on ``device`` (``None`` is the
+  GPU; the input is moved there, and the CPU must be asked for).
 
-The QDT (``qdt_raw``/``qdt_regularize``/``qdt``) and the granulometry
-wait for later slices of the port.
+The quasi-distance transform's oracle (``qdt_raw``, Eq. 13) and its
+η-regularization (``qdt_regularize``, Eq. 14-15) are plain torch loops
+on their tensor's device — ``qdt_raw`` is the ``"torch"`` engine's QDT,
+``qdt_regularize`` the finalize step of ``qdt_l1_expr``.  The
+granulometry (``granulometric_function``, ``pattern_spectrum``, Eq.
+16-18) runs the oracle chains on ``device``.
 """
 from __future__ import annotations
 
@@ -21,7 +25,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import morphology as M
-from repro_torch.core.backend import numpy_dtype
+from repro_torch.core.backend import numpy_dtype, resolve_device
+from repro_torch.kernels.common import qdt_acc_dtype
 
 
 def _api():
@@ -141,6 +146,94 @@ def opening_by_reconstruction(f: torch.Tensor, s: int,
     The erosion chain and the reconstruction share one padded program."""
     return _run(_api().opening_by_reconstruction_expr, f, backend, device,
                 s)
+
+
+# ---------------------------------------------------------------------------
+# quasi-distance transform (Eq. 13-15, Alg. 5)
+# ---------------------------------------------------------------------------
+
+
+def qdt_raw(f: torch.Tensor, max_s: int | None = None):
+    """d(f), r(f): distance of the largest residual per pixel (Eq. 13).
+
+    Returns (d, r) where d is int32 distance and r the residual in the
+    ``qdt_acc_dtype`` accumulator (residuals of unsigned images fit).
+    Erodes until nothing changes (over the whole stack) or ``max_s``
+    steps, one read-back per step, as the reference's while loop.
+    """
+    if max_s is None:
+        max_s = max(f.shape[-1], f.shape[-2])
+    acc = qdt_acc_dtype(f.dtype)
+    d = torch.zeros(f.shape, dtype=torch.int32, device=f.device)
+    r = torch.zeros(f.shape, dtype=acc, device=f.device)
+    cur, j, changed = f, 1, True
+    while changed and j <= max_s:
+        nxt = M.erode3(cur)
+        res = M.wide(cur).to(acc) - M.wide(nxt).to(acc)
+        upd = res > r
+        r = torch.where(upd, res, r)
+        d = torch.where(upd, j, d)
+        changed = bool(M.not_equal(nxt, cur).any())
+        cur, j = nxt, j + 1
+    return d, r
+
+
+def _eta(x: torch.Tensor) -> torch.Tensor:
+    e = M.erode3(x)
+    return torch.where(x - e > 1, e + 1, x)
+
+
+def qdt_regularize(d: torch.Tensor,
+                   max_iters: int | None = None) -> torch.Tensor:
+    """η-iteration (Eq. 14) until d is 1-Lipschitz (Eq. 15)."""
+    if max_iters is None:
+        max_iters = d.shape[-1] * d.shape[-2]
+    x = _eta(d)
+    it, changed = 1, bool((x != d).any())
+    while changed and it < max_iters:
+        nxt = _eta(x)
+        changed = bool((nxt != x).any())
+        x, it = nxt, it + 1
+    return x
+
+
+def qdt(f: torch.Tensor, max_s: int | None = None,
+        backend: str | None = None, device=None) -> torch.Tensor:
+    """L1-regularized quasi-distance transform d_L1(f) on ``device``
+    (``None`` is the GPU).  With ``max_s`` the oracle runs at most
+    ``max_s`` erosions, as in the reference."""
+    if max_s is not None:
+        d, _ = qdt_raw(torch.as_tensor(f, device=resolve_device(device)),
+                       max_s)
+        return qdt_regularize(d)
+    return _run(_api().qdt_l1_expr, f, backend, device)
+
+
+# ---------------------------------------------------------------------------
+# granulometry / pattern spectrum (Eq. 16-18)
+# ---------------------------------------------------------------------------
+
+
+def granulometric_function(f: torch.Tensor, smax: int,
+                           device=None) -> torch.Tensor:
+    """G_s(f) = Σ_p γ_s(f) for s = 0..smax (Eq. 17) on ``device``
+    (``None`` is the GPU), the erosion chain extended one step per
+    scale and re-dilated (Eq. 16)."""
+    f = torch.as_tensor(f, device=resolve_device(device))
+    acc = torch.float64 if f.dtype == torch.float64 else torch.float32
+    sums = [M.wide(f).to(acc).sum()]
+    eroded = f
+    for s in range(1, smax + 1):
+        eroded = M.erode3(eroded)
+        sums.append(M.wide(M.dilate(eroded, s)).to(acc).sum())
+    return torch.stack(sums)
+
+
+def pattern_spectrum(f: torch.Tensor, smax: int,
+                     device=None) -> torch.Tensor:
+    """PS_s(f) = G_s(f) - G_{s+1}(f) for s = 0..smax-1 (Eq. 18)."""
+    g = granulometric_function(f, smax, device)
+    return g[:-1] - g[1:]
 
 
 def asf(f: torch.Tensor, s: int, backend: str | None = None,

@@ -1,11 +1,12 @@
 """Build and load the CUDA kernels (``csrc/*.cu``) at first use.
 
 Each source is compiled by ``nvcc`` into a shared library with a plain
-C interface, named by a hash of the source and the flags, under
-``build/repro_torch_kernels/`` at the repository root, and loaded with
-``ctypes``.  A library that already exists under its hash is loaded as
-it is.  Nothing here runs at import time: the CPU-only tests import
-every module, and only a launch on a CUDA tensor asks for a library.
+C interface, named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, under ``build/repro_torch_kernels/`` at
+the repository root, and loaded with ``ctypes``.  A library that
+already exists under its hash is loaded as it is.  Nothing here runs at
+import time: the CPU-only tests import every module, and only a launch
+on a CUDA tensor asks for a library.
 """
 from __future__ import annotations
 
@@ -42,6 +43,16 @@ LAUNCHERS = {
     "geodesic_compact_step_launch": (
         [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
         "morph_chain.cu"),
+    "qdt_chain_step_launch": (
+        [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "qdt_chain.cu"),
+    "qdt_tile_step_launch": (
+        [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+         _P],
+        "qdt_chain.cu"),
+    "qdt_compact_step_launch": (
+        [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "qdt_chain.cu"),
 }
 
 _libs: dict = {}
@@ -61,8 +72,10 @@ def _nvcc() -> str:
 
 def library_path(source: str) -> pathlib.Path:
     """Where ``source``'s library lives: named by a hash of the source
-    text and the compiler flags."""
-    digest = hashlib.sha256((CSRC / source).read_bytes()
+    text, the shared headers (``csrc/*.cuh``) and the compiler flags."""
+    text = b"".join([(CSRC / source).read_bytes(),
+                     *(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))])
+    digest = hashlib.sha256(text
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{pathlib.Path(source).stem}_{digest[:16]}.so"
 

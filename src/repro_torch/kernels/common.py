@@ -8,7 +8,7 @@ Here the same windows are gathered for a whole batch of cells at once
 (:func:`gather_windows`): clamped reads, then :func:`assemble_tile`
 pins by the per-cell edge flags of :func:`image_edges` and
 :func:`tile_edges`.  The CUDA kernels compute the same offsets from
-their block index (``csrc/morph_chain.cu``).
+their block index (``csrc/morph_common.cuh``).
 
 PyTorch's CUDA indexing and ``where`` take no ``uint16``; the glue
 moves such data as its int16 bit view (:func:`as_bits`), which keeps
@@ -144,6 +144,26 @@ def cells_to_plane(cells: torch.Tensor, n_tiles: int) -> torch.Tensor:
     plane = (as_bits(cells).reshape(nb, n_tiles, bh, tw)
              .permute(0, 2, 1, 3).reshape(nb * bh, n_tiles * tw))
     return from_bits(plane, cells.dtype)
+
+
+def select_cells(flags: torch.Tensor, new: torch.Tensor, old: torch.Tensor):
+    """Active cells take ``new``, the rest keep ``old``; the changed
+    flag of a cell is 1 iff it is active and a centre pixel moved."""
+    act = flags.reshape(-1) > 0
+    out = from_bits(torch.where(act[:, None, None], as_bits(new),
+                                as_bits(old)), old.dtype)
+    moved = M.not_equal(out, old).flatten(1).any(1)
+    return out, (moved & act).to(torch.int32)
+
+
+def flags_arg(name: str, flags, shape, device) -> torch.Tensor:
+    """A kernel's int32 per-cell grid of ``shape`` (all ones if None)."""
+    if flags is None:
+        return torch.ones(shape, dtype=torch.int32, device=device)
+    if tuple(flags.shape) != shape or flags.dtype != torch.int32:
+        raise ValueError(f"{name}: expected an int32 {shape} grid, got "
+                         f"{flags.dtype} {tuple(flags.shape)}")
+    return flags
 
 
 def check_op(op: str) -> str:

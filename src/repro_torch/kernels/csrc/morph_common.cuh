@@ -1,0 +1,248 @@
+// Pieces shared by the fused morphology kernels for Hopper (sm_90a):
+// morph_chain.cu (erosion/dilation chains and geodesic steps) and
+// qdt_chain.cu (the quasi-distance transform).
+//
+// Both take a TB x TW sub-tile of one scheduling cell per block: a row
+// band (n_tiles = 1, cell_w = array width), a band x column tile, or one
+// pre-pinned patch of a vertically stacked patch array (compact).  This
+// header holds the lattice identities, the NaN-propagating min/max,
+// where a block's window lies (locate), its load into shared memory with
+// the pinning of rows outside the cell's image and columns outside the
+// array (load_window), and the choice of the sub-tile (pick_subtile).
+// Sub-tiling is exact: after K steps a centre pixel depends only on its
+// K-neighbourhood inside its image, so any TB x TW gives the same
+// result.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace morph {
+
+constexpr int kThreads = 256;
+
+template <typename T> struct Lattice;
+template <> struct Lattice<uint8_t> {
+  __device__ static uint8_t hi() { return 0xFF; }
+  __device__ static uint8_t lo() { return 0; }
+};
+template <> struct Lattice<uint16_t> {
+  __device__ static uint16_t hi() { return 0xFFFF; }
+  __device__ static uint16_t lo() { return 0; }
+};
+template <> struct Lattice<int32_t> {
+  __device__ static int32_t hi() { return 0x7FFFFFFF; }
+  __device__ static int32_t lo() { return -0x7FFFFFFF - 1; }
+};
+template <> struct Lattice<float> {
+  __device__ static float hi() { return __int_as_float(0x7F800000); }
+  __device__ static float lo() { return __int_as_float(0xFF800000); }
+};
+template <> struct Lattice<double> {
+  __device__ static double hi() {
+    return __longlong_as_double(0x7FF0000000000000LL);
+  }
+  __device__ static double lo() {
+    return __longlong_as_double(static_cast<long long>(0xFFF0000000000000ULL));
+  }
+};
+
+// NaN-propagating min (MIN) or max: a NaN operand wins either way, as
+// with jnp.minimum (fminf/fmaxf would return the non-NaN operand).
+template <typename T, bool MIN>
+__device__ __forceinline__ T pick(T a, T b) {
+  if (MIN) return (b < a || b != b) ? b : a;
+  return (b > a || b != b) ? b : a;
+}
+
+// Where one launch reads and writes.  A cell is a row band (n_tiles=1,
+// cell_w = array width), a band x column tile, or (compact) one
+// pre-pinned patch of a vertically stacked patch array.
+struct Geo {
+  const void* f;        // marker / input
+  const void* m;        // mask (geodesic only)
+  const int* active;    // per-cell activity or slot validity, or null
+  void* out;            // new buffer
+  int* changed;         // per-cell flag, zeroed by the caller
+  long long src_w;      // row stride of f and m
+  long long out_w;      // row stride of out
+  int k;                // fused steps
+  int cell_h, cell_w;   // centre of one cell
+  int n_tiles;          // cells per band row (stack mode)
+  int rows_per_image;   // pinning period of the stack (stack mode)
+  int compact;          // 1: f/m are stacked (cell_h+2K) x (cell_w+2K) patches
+  int tb, tw, n_sub_c;  // sub-tile and sub-tiles per cell row
+};
+
+// One block's sub-tile: blockIdx.x is the cell, blockIdx.y the sub-tile.
+struct Window {
+  int tb, tw;            // this sub-tile (ragged at the cell's edge)
+  int WH, WW, WS;        // window rows and columns, shared-memory stride
+  long long wr, wc;      // window origin in the source
+  long long rlo, rhi;    // the source rows that are not pinned
+  long long orow, ocol;  // the sub-tile's origin in the output
+};
+
+__device__ __forceinline__ Window locate(const Geo& g) {
+  const int K = g.k;
+  const int cell = blockIdx.x;
+  const int sr = blockIdx.y / g.n_sub_c, sc = blockIdx.y % g.n_sub_c;
+  Window w;
+  w.tb = min(g.tb, g.cell_h - sr * g.tb);
+  w.tw = min(g.tw, g.cell_w - sc * g.tw);
+  w.WH = w.tb + 2 * K;
+  w.WW = w.tw + 2 * K;
+  w.WS = g.tw + 2 * K;
+  if (g.compact) {
+    const long long pr = static_cast<long long>(cell) * (g.cell_h + 2 * K);
+    w.wr = pr + static_cast<long long>(sr) * g.tb;
+    w.wc = static_cast<long long>(sc) * g.tw;
+    w.rlo = pr;
+    w.rhi = pr + g.cell_h + 2 * K;
+    w.orow = static_cast<long long>(cell) * g.cell_h
+             + static_cast<long long>(sr) * g.tb;
+    w.ocol = w.wc;
+  } else {
+    const int bi = cell / g.n_tiles, tj = cell % g.n_tiles;
+    const long long band0 = static_cast<long long>(bi) * g.cell_h;
+    w.orow = band0 + static_cast<long long>(sr) * g.tb;
+    w.ocol = static_cast<long long>(tj) * g.cell_w
+             + static_cast<long long>(sc) * g.tw;
+    w.wr = w.orow - K;
+    w.wc = w.ocol - K;
+    w.rlo = band0 - band0 % g.rows_per_image;  // first row of the image
+    w.rhi = w.rlo + g.rows_per_image;
+  }
+  return w;
+}
+
+// The (WH, WW) window of src into dst (row stride WS), with rows outside
+// [rlo, rhi) and columns outside the array set to id.
+template <typename T>
+__device__ __forceinline__ void load_window(T* dst, const T* src,
+                                            const Geo& g, const Window& w,
+                                            T id) {
+  for (int i = threadIdx.x; i < w.WH * w.WW; i += kThreads) {
+    const int r = i / w.WW, c = i % w.WW;
+    const long long gr = w.wr + r, gc = w.wc + c;
+    const bool in = gr >= w.rlo && gr < w.rhi && gc >= 0 && gc < g.src_w;
+    dst[r * w.WS + c] = in ? src[gr * g.src_w + gc] : id;
+  }
+}
+
+// The sub-tile's centre of src, copied through to out.
+template <typename T>
+__device__ __forceinline__ void copy_centre(T* out, const T* src,
+                                            const Geo& g, const Window& w) {
+  const int K = g.k;
+  for (int i = threadIdx.x; i < w.tb * w.tw; i += kThreads) {
+    const int r = i / w.tw, c = i % w.tw;
+    out[(w.orow + r) * g.out_w + w.ocol + c] =
+        src[(w.wr + K + r) * g.src_w + w.wc + K + c];
+  }
+}
+
+__host__ __device__ inline size_t align16(size_t n) {
+  return (n + 15) & ~static_cast<size_t>(15);
+}
+
+// Choose the sub-tile: the largest useful fraction TB*TW/((TB+2K)(TW+2K))
+// whose shared memory fits half the 227 KB (two blocks per SM), else all
+// of it.  The shared memory is narr windows of esize-byte pixels and,
+// where centre_bytes > 0, centre_bytes for each pixel of the TB x TW
+// centre after them (16-byte aligned).  Sub-tiles never exceed the cell.
+inline bool pick_subtile(int k, int esize, int narr, int centre_bytes,
+                         int cell_h, int cell_w, int* tb_out, int* tw_out,
+                         size_t* smem_out) {
+  static const int kTB[] = {128, 64, 32, 16, 8};
+  static const int kTW[] = {256, 128, 64, 32};
+  static const size_t kBudget[] = {113 * 1024, 227 * 1024};
+  for (size_t budget : kBudget) {
+    double best = -1.0;
+    for (int tb0 : kTB) {
+      for (int tw0 : kTW) {
+        const int tb = tb0 < cell_h ? tb0 : cell_h;
+        const int tw = tw0 < cell_w ? tw0 : cell_w;
+        size_t smem = static_cast<size_t>(narr) * (tb + 2 * k)
+                      * (tw + 2 * k) * esize;
+        if (centre_bytes > 0)
+          smem = align16(smem) + static_cast<size_t>(tb) * tw * centre_bytes;
+        if (smem > budget) continue;
+        const double eff = static_cast<double>(tb) * tw
+                           / ((tb + 2.0 * k) * (tw + 2.0 * k));
+        if (eff > best) {
+          best = eff;
+          *tb_out = tb;
+          *tw_out = tw;
+          *smem_out = smem;
+        }
+      }
+    }
+    if (best > 0) return true;
+  }
+  return false;
+}
+
+// Sets g.n_sub_c and returns the sub-tiles per cell (gridDim.y), or -1
+// when there are more than a grid's y dimension takes.
+inline int sub_tiles(Geo& g) {
+  g.n_sub_c = (g.cell_w + g.tw - 1) / g.tw;
+  const long long n_sub =
+      static_cast<long long>((g.cell_h + g.tb - 1) / g.tb) * g.n_sub_c;
+  return n_sub > 65535 ? -1 : static_cast<int>(n_sub);
+}
+
+// Opts a kernel into more than 48 KB of dynamic shared memory.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kern, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kern,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+// A stacked (H, W) array cut into cells of band_h x cell_w.
+inline Geo stack_geo(const void* f, const void* m, const int* active,
+                     void* out, int* changed, int w, int band_h, int cell_w,
+                     int k, int bands_per_image) {
+  Geo g{};
+  g.f = f;
+  g.m = m;
+  g.active = active;
+  g.out = out;
+  g.changed = changed;
+  g.src_w = w;
+  g.out_w = w;
+  g.k = k;
+  g.cell_h = band_h;
+  g.cell_w = cell_w;
+  g.n_tiles = w / cell_w;
+  g.rows_per_image = bands_per_image * band_h;
+  g.compact = 0;
+  return g;
+}
+
+// A vertical stack of (band_h + 2K, tile_w + 2K) patches whose centres
+// go to a (cap * band_h, tile_w) array.
+inline Geo patch_geo(const void* f, const void* m, const int* valid,
+                     void* out, int* changed, int band_h, int tile_w,
+                     int k) {
+  Geo g{};
+  g.f = f;
+  g.m = m;
+  g.active = valid;
+  g.out = out;
+  g.changed = changed;
+  g.src_w = tile_w + 2 * k;
+  g.out_w = tile_w;
+  g.k = k;
+  g.cell_h = band_h;
+  g.cell_w = tile_w;
+  g.n_tiles = 1;
+  g.rows_per_image = band_h + 2 * k;
+  g.compact = 1;
+  return g;
+}
+
+}  // namespace morph

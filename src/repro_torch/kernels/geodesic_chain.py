@@ -25,10 +25,11 @@ import torch
 
 from repro_torch.core import morphology as M
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import (as_bits, cell_view, cells_to_plane,
+from repro_torch.kernels.common import (cell_view, cells_to_plane,
                                         check_grid, check_op,
-                                        elementary_3x3, from_bits,
-                                        gather_windows, ident_for)
+                                        elementary_3x3, flags_arg,
+                                        gather_windows, ident_for,
+                                        select_cells)
 
 
 def _geodesic_windows(fw, mw, op: str, fuse_k: int, band_h: int,
@@ -39,16 +40,6 @@ def _geodesic_windows(fw, mw, op: str, fuse_k: int, band_h: int,
     for _ in range(fuse_k):
         fw = clamp(elementary_3x3(fw, op), mw)
     return fw[:, fuse_k:fuse_k + band_h, fuse_k:fuse_k + tile_w]
-
-
-def _select(flags: torch.Tensor, new: torch.Tensor, old: torch.Tensor):
-    """Active cells take ``new``, the rest keep ``old``; the changed
-    flag of a cell is 1 iff it is active and a centre pixel moved."""
-    act = flags.reshape(-1) > 0
-    out = from_bits(torch.where(act[:, None, None], as_bits(new),
-                                as_bits(old)), old.dtype)
-    moved = M.not_equal(out, old).flatten(1).any(1)
-    return out, (moved & act).to(torch.int32)
 
 
 def _grid_plain(f, m, op, fuse_k, band_h, tile_w, active, bands_per_image):
@@ -64,7 +55,7 @@ def _grid_plain(f, m, op, fuse_k, band_h, tile_w, active, bands_per_image):
     new = _geodesic_windows(gather_windows(f, idx, **geo),
                             gather_windows(m, idx, **geo), op, fuse_k,
                             band_h, tile_w)
-    out, changed = _select(active, new, cell_view(f, band_h, tile_w))
+    out, changed = select_cells(active, new, cell_view(f, band_h, tile_w))
     return cells_to_plane(out, n_tiles), changed.reshape(-1, n_tiles)
 
 
@@ -91,17 +82,8 @@ def geodesic_compact_step_plain(f_patch, m_patch, valid, *, op, fuse_k,
     new = _geodesic_windows(fw, m_patch.reshape(cap, ph, pw), check_op(op),
                             fuse_k, band_h, tile_w)
     old = fw[:, fuse_k:fuse_k + band_h, fuse_k:fuse_k + tile_w]
-    out, changed = _select(valid, new, old)
+    out, changed = select_cells(valid, new, old)
     return out.reshape(cap * band_h, tile_w), changed.reshape(cap, 1)
-
-
-def _flags_arg(name, flags, shape, device):
-    if flags is None:
-        return torch.ones(shape, dtype=torch.int32, device=device)
-    if tuple(flags.shape) != shape or flags.dtype != torch.int32:
-        raise ValueError(f"{name}: expected an int32 {shape} grid, got "
-                         f"{flags.dtype} {tuple(flags.shape)}")
-    return flags
 
 
 def _check_pair(f, m):
@@ -123,7 +105,7 @@ def geodesic_chain_step(f, m, *, op, fuse_k, band_h, active=None,
     h, w = f.shape
     bpi = check_grid(h, band_h, fuse_k, bands_per_image)
     n_bands = h // band_h
-    active = _flags_arg("active", active, (n_bands, 1), f.device)
+    active = flags_arg("active", active, (n_bands, 1), f.device)
     if f.device.type == "cpu":
         return geodesic_chain_step_plain(
             f, m, op=op, fuse_k=fuse_k, band_h=band_h, active=active,
@@ -150,7 +132,7 @@ def geodesic_tile_step(f, m, *, op, fuse_k, band_h, tile_w, active=None,
                          f"itself a multiple of fuse_k={fuse_k}")
     bpi = check_grid(h, band_h, fuse_k, bands_per_image)
     grid = (h // band_h, w // tile_w)
-    active = _flags_arg("active", active, grid, f.device)
+    active = flags_arg("active", active, grid, f.device)
     if f.device.type == "cpu":
         return geodesic_tile_step_plain(
             f, m, op=op, fuse_k=fuse_k, band_h=band_h, tile_w=tile_w,
@@ -178,7 +160,7 @@ def geodesic_compact_step(f_patch, m_patch, valid, *, op, fuse_k, band_h,
         raise ValueError(f"patches {tuple(f_patch.shape)} are not a stack "
                          f"of ({ph}, {pw}) windows")
     cap = f_patch.shape[0] // ph
-    valid = _flags_arg("valid", valid, (cap, 1), f_patch.device)
+    valid = flags_arg("valid", valid, (cap, 1), f_patch.device)
     if f_patch.device.type == "cpu":
         return geodesic_compact_step_plain(
             f_patch, m_patch, valid, op=op, fuse_k=fuse_k, band_h=band_h,

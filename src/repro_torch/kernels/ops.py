@@ -4,10 +4,16 @@ main-path part).
 This module owns the *engine*: padding/stacking layout helpers, the
 fixed-chain drivers (``morph_chain``, ``geodesic_chain``) and the
 active-cell requeue scheduler (``_drive_scheduler`` and the
-``_scheduled_reconstruct`` step bundle) that ``repro_torch.api``'s
-executables drive.  The operator sugar (``erode``/``dilate``/
-``opening``/``closing``/``reconstruct``) builds an expression and
-routes through ``repro_torch.api.compile``.
+``_scheduled_reconstruct`` / ``_scheduled_qdt`` step bundles) that
+``repro_torch.api``'s executables drive.  The operator sugar
+(``erode``/``dilate``/``opening``/``closing``/``reconstruct``/
+``qdt_planes``) builds an expression and routes through
+``repro_torch.api.compile``.
+
+Every entry point runs on ``device`` (``None`` is the GPU, which raises
+without one; the CPU must be asked for with ``device="cpu"``) and moves
+its inputs there.  The kernel wrappers underneath follow the tensors
+they are given.
 
 ``backend``:
   * ``"cuda"`` (``None``) — the padded engine on the fused kernels: the
@@ -42,15 +48,18 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import morphology as M
-from repro_torch.core.backend import canonicalize_backend
+from repro_torch.core.backend import canonicalize_backend, resolve_device
 from repro_torch.core.chain import ChainPlan, plan_chain
 from repro_torch.kernels.common import (as_bits, bits_value, cell_view,
                                         cells_to_plane, from_bits,
-                                        gather_windows, ident_for)
+                                        gather_windows, ident_for,
+                                        qdt_acc_dtype)
 from repro_torch.kernels.erode_chain import chain_step
 from repro_torch.kernels.geodesic_chain import (geodesic_chain_step,
                                                 geodesic_compact_step,
                                                 geodesic_tile_step)
+from repro_torch.kernels.qdt_chain import (qdt_chain_step, qdt_compact_step,
+                                           qdt_tile_step)
 
 
 def _api():
@@ -123,6 +132,12 @@ def _stacked(x3: torch.Tensor) -> torch.Tensor:
 
 def _unstacked(x2: torch.Tensor, n: int) -> torch.Tensor:
     return x2.reshape(n, x2.shape[0] // n, x2.shape[1])
+
+
+def _on_device(device, *tensors):
+    """``tensors`` moved to ``device`` (``None`` is the GPU)."""
+    device = resolve_device(device)
+    return tuple(torch.as_tensor(t, device=device) for t in tensors)
 
 
 def _plan_for(f3: torch.Tensor, plan: ChainPlan | None) -> None:
@@ -233,10 +248,12 @@ def _active_indices(active: torch.Tensor, plan: ChainPlan):
 
 def morph_chain(f: torch.Tensor, n: int, op: str = "erode",
                 backend: str | None = None,
-                plan: ChainPlan | None = None) -> torch.Tensor:
+                plan: ChainPlan | None = None, device=None) -> torch.Tensor:
     """Apply n elementary 3×3 erosions/dilations with K-step fusion on
-    ``f``'s device.  Accepts (H, W) or a batched (N, H, W) stack."""
+    ``device`` (``None`` is the GPU).  Accepts (H, W) or a batched
+    (N, H, W) stack."""
     backend = canonicalize_backend(backend)
+    (f,) = _on_device(device, f)
     if backend == "torch":
         return M.erode(f, n) if op == "erode" else M.dilate(f, n)
 
@@ -298,10 +315,13 @@ def closing(f: torch.Tensor, s: int, backend: str | None = None,
 
 def geodesic_chain(f: torch.Tensor, m: torch.Tensor, n: int,
                    op: str = "erode", backend: str | None = None,
-                   plan: ChainPlan | None = None) -> torch.Tensor:
-    """n elementary geodesic steps (fixed length, Eq. 4) on ``f``'s
-    device.  Accepts (H, W) or a batched (N, H, W) marker/mask stack."""
+                   plan: ChainPlan | None = None,
+                   device=None) -> torch.Tensor:
+    """n elementary geodesic steps (fixed length, Eq. 4) on ``device``
+    (``None`` is the GPU).  Accepts (H, W) or a batched (N, H, W)
+    marker/mask stack."""
     backend = canonicalize_backend(backend)
+    f, m = _on_device(device, f, m)
     if backend == "torch":
         step = M.geodesic_erode if op == "erode" else M.geodesic_dilate
         return step(f, m, n)
@@ -340,17 +360,22 @@ def scheduler_state0(plan: ChainPlan, device) -> tuple:
             np.zeros((plan.n_images,), np.int32))
 
 
-def _drive_scheduler(plan: ChainPlan, data: torch.Tensor, *, full_step,
+def _drive_scheduler(plan: ChainPlan, data, device, *, full_step,
                      compact_step=None, gather_const=None, max_chunks: int,
                      with_stats: bool = False):
-    """Active-cell requeue driver loop (the paper's Alg. 4 work queue).
+    """Active-cell requeue driver loop (the paper's Alg. 4 work queue),
+    for the chain whose state ``data`` lives on ``device``.
 
-    ``full_step(data, active) -> (data, flags)`` runs one K-chunk over
-    the full grid; ``compact_step(data, idx, valid, const) -> (data,
-    flags)`` one K-chunk on the compacted workspace of cells ``idx``;
-    ``gather_const(idx)`` gathers the chunk-invariant compact operands
-    (the mask patches), cached while the active set is unchanged.
-    ``flags`` come back as a (total_bands, n_tiles) int32 grid.
+    ``full_step(data, active, base) -> (data, flags)`` runs one K-chunk
+    over the full grid; ``compact_step(data, idx, valid, const, base) ->
+    (data, flags)`` one K-chunk on the compacted workspace of cells
+    ``idx``; ``gather_const(idx)`` gathers the chunk-invariant compact
+    operands (the mask patches), cached while the active set is
+    unchanged.  ``base`` is a host (total_bands, 1) int32 array: the
+    elementary filters already applied to each band's *image* (its
+    chunk count times K), which advances only while the image has
+    active cells — the QDT's distance offset; reconstruction ignores
+    it.  ``flags`` come back as a (total_bands, n_tiles) int32 grid.
 
     Returns (data, chunks, active_cell_sum, active_per_chunk,
     img_converged, (active, img_chunks)); ``img_converged`` is True
@@ -363,21 +388,23 @@ def _drive_scheduler(plan: ChainPlan, data: torch.Tensor, *, full_step,
     use_compact = (compact_step is not None and plan.compact_threshold > 0.0
                    and cap < total)
     with_cache = use_compact and gather_const is not None
-    active, img_chunks = scheduler_state0(plan, data.device)
+    active, img_chunks = scheduler_state0(plan, device)
     active_h = np.ones((total,), np.int32)
     per_chunk = np.zeros((max_chunks if with_stats else 0,), np.int32)
     ckey = cval = None
     it = asum = 0
     while active_h.any() and it < max_chunks:
         count = int(active_h.sum())
+        base = np.repeat(img_chunks * plan.fuse_k,
+                         plan.n_bands)[:, None].astype(np.int32)
         if use_compact and count <= cap:
             idx, valid = _active_indices(active, plan)
             key = active_h > 0
             if with_cache and (ckey is None or not np.array_equal(key, ckey)):
                 cval, ckey = gather_const(idx), key
-            data, flags = compact_step(data, idx, valid, cval)
+            data, flags = compact_step(data, idx, valid, cval, base)
         else:
-            data, flags = full_step(data, active)
+            data, flags = full_step(data, active, base)
         if with_stats:
             per_chunk[it] = count
         img_chunks = img_chunks + active_h.reshape(plan.n_images, -1).any(1)
@@ -402,7 +429,7 @@ def _scheduled_reconstruct(fp, mp, plan: ChainPlan, op: str,
     ident = ident_for(op, fp.dtype)
     geo = dict(op=op, fuse_k=plan.fuse_k, band_h=plan.band_h)
 
-    def full_step(x, active):
+    def full_step(x, active, _base):
         if plan.n_tiles > 1:
             return geodesic_tile_step(x, mp, tile_w=plan.tile_w,
                                       active=active,
@@ -413,7 +440,7 @@ def _scheduled_reconstruct(fp, mp, plan: ChainPlan, op: str,
     def gather_const(idx):
         return _gather_patches(mp, idx, plan, ident)
 
-    def compact_step(x, idx, valid, mask_patch):
+    def compact_step(x, idx, valid, mask_patch, _base):
         f_patch = _gather_patches(x, idx, plan, ident)
         new_mid, ch = geodesic_compact_step(
             f_patch, mask_patch, valid, tile_w=_cell_tile_w(plan), **geo)
@@ -421,7 +448,7 @@ def _scheduled_reconstruct(fp, mp, plan: ChainPlan, op: str,
                 _scatter_flags(ch, idx, plan))
 
     return _drive_scheduler(
-        plan, fp, full_step=full_step, compact_step=compact_step,
+        plan, fp, fp.device, full_step=full_step, compact_step=compact_step,
         gather_const=gather_const, max_chunks=max_chunks,
         with_stats=with_stats,
     )
@@ -479,11 +506,13 @@ def reconstruct(f: torch.Tensor, m: torch.Tensor, op: str = "erode",
 def reconstruct_with_stats(f: torch.Tensor, m: torch.Tensor,
                            op: str = "erode", backend: str | None = None,
                            max_chunks: int | None = None,
-                           plan: ChainPlan | None = None):
+                           plan: ChainPlan | None = None, device=None):
     """Like ``reconstruct`` but also returns :class:`ReconstructStats`
-    (chunk count and cell-level requeue accounting).  Engine entry
-    point: ``backend``/``max_chunks``/``plan`` are first-class here."""
+    (chunk count and cell-level requeue accounting), on ``device``
+    (``None`` is the GPU).  Engine entry point:
+    ``backend``/``max_chunks``/``plan`` are first-class here."""
     backend = canonicalize_backend(backend)
+    f, m = _on_device(device, f, m)
     if backend == "torch":
         iter_cap = (max_chunks if max_chunks is not None
                     else f.shape[-1] * f.shape[-2])
@@ -498,3 +527,77 @@ def reconstruct_with_stats(f: torch.Tensor, m: torch.Tensor,
             converged=iters < iter_cap,
         )
     return _reconstruct_impl(f, m, op, max_chunks, plan, with_stats=True)
+
+
+# ---------------------------------------------------------------------------
+# quasi-distance transform (Alg. 5)
+# ---------------------------------------------------------------------------
+
+
+def _scheduled_qdt(fp, plan: ChainPlan, max_chunks: int):
+    """QDT's step functions for :func:`_drive_scheduler`.
+
+    ``fp`` is the stacked (TOTAL_H, W_pad) image, padded with the
+    erosion identity.  Returns the final (eroded, residual, distance)
+    stacked planes, the per-image convergence vector and the scheduler
+    state; the residual plane is ``qdt_acc_dtype`` (float32 for float
+    images, int32 otherwise).  Each chunk copies the host ``base`` to
+    the device: broadcast over a band's tiles for the tile kernel, one
+    entry per workspace slot for the compact kernel.
+    """
+    k = plan.fuse_k
+    ident = ident_for("erode", fp.dtype)
+    rp = torch.zeros(fp.shape, dtype=qdt_acc_dtype(fp.dtype),
+                     device=fp.device)
+    dp = torch.zeros(fp.shape, dtype=torch.int32, device=fp.device)
+
+    def full_step(data, active, base):
+        x, r, d = data
+        base = torch.from_numpy(base).to(x.device)
+        if plan.n_tiles > 1:
+            x, r, d, ch = qdt_tile_step(
+                x, r, d,
+                base.expand(plan.total_bands, plan.n_tiles).contiguous(),
+                fuse_k=k, band_h=plan.band_h, tile_w=plan.tile_w,
+                active=active, bands_per_image=plan.n_bands)
+        else:
+            x, r, d, ch = qdt_chain_step(
+                x, r, d, base, fuse_k=k, band_h=plan.band_h, active=active,
+                bands_per_image=plan.n_bands)
+        return (x, r, d), ch
+
+    def compact_step(data, idx, valid, _const, base):
+        x, r, d = data
+        f_patch = _gather_patches(x, idx, plan, ident)
+        rm = _gather_mid(r, idx, plan)
+        dm = _gather_mid(d, idx, plan)
+        # each slot carries its image's erosion count; the sentinel
+        # index clamps to the last band (its slot is dropped anyway)
+        band = (idx.long() // plan.n_tiles).clamp(max=plan.total_bands - 1)
+        base_slots = torch.from_numpy(base).to(x.device)[band]
+        f2, r2, d2, ch = qdt_compact_step(
+            f_patch, rm, dm, valid, base_slots, fuse_k=k,
+            band_h=plan.band_h, tile_w=_cell_tile_w(plan))
+        return ((_scatter_mid(x, idx, f2, plan),
+                 _scatter_mid(r, idx, r2, plan),
+                 _scatter_mid(d, idx, d2, plan)),
+                _scatter_flags(ch, idx, plan))
+
+    (x, r, d), _, _, _, img_conv, state = _drive_scheduler(
+        plan, (fp, rp, dp), fp.device, full_step=full_step,
+        compact_step=compact_step, max_chunks=max_chunks)
+    return x, r, d, img_conv, state
+
+
+def qdt_planes(f: torch.Tensor, backend: str | None = None,
+               max_chunks: int | None = None,
+               plan: ChainPlan | None = None, device=None):
+    """d(f), r(f) of Eq. 13 with the fused masked-store kernels, through
+    ``repro_torch.api.compile`` on ``device`` (``None`` is the GPU).
+    Accepts (H, W) or (N, H, W); runs the same active-cell requeue
+    scheduler as ``reconstruct``.  Returns (d, r)."""
+    api = _api()
+    exe = api.compile(api.E.qdt(api.E.input("f")), f.shape, f.dtype,
+                      backend, plan=plan, max_chunks=max_chunks,
+                      device=device)
+    return exe(f)

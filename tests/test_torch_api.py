@@ -19,6 +19,18 @@ from repro_torch.kernels import ops as TO
 pytestmark = pytest.mark.pipeline
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread while this module runs: under several pytest
+    workers on one machine each worker's torch thread pool
+    oversubscribes the cores and its threads spin, which made cases
+    here up to 100× slower than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 BUILDERS = {
     "erode": lambda api, f: api.E.erode(5, f),
     "dilate": lambda api, f: api.E.dilate(3, f),
@@ -102,8 +114,8 @@ def test_operator_sugar_and_engine_entry_points():
                                 "xla", rewrite=False)(f.numpy()))
     assert np.array_equal(ref, TOPS.asf(f, 1, **cpu).numpy())
     assert TOPS.asf_chain_length(3) == 24
-    assert torch.equal(TO.morph_chain(f, 37, "erode"),
-                       TO.morph_chain(f, 37, "erode", "torch"))
+    assert torch.equal(TO.morph_chain(f, 37, "erode", **cpu),
+                       TO.morph_chain(f, 37, "erode", "torch", **cpu))
     assert torch.equal(TO.reconstruct(f // 2, f, "dilate", **cpu),
                        TO.reconstruct(f // 2, f, "dilate", "torch", **cpu))
 
@@ -124,8 +136,6 @@ def test_forced_specialization_matches_reference(specialize):
 
 def test_unported_segments_raise_not_implemented():
     f = TA.E.input("f")
-    with pytest.raises(NotImplementedError, match="QDT"):
-        TA.compile(TA.E.qdt(f), (8, 8), np.uint8, device="cpu")
     with pytest.raises(NotImplementedError, match="gdt"):
         TA.compile(TA.E.gdt(f, f), (8, 8), np.float32, device="cpu")
 

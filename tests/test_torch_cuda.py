@@ -10,10 +10,12 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.api import compile, hmax_expr
+from repro_torch.api import E, compile, hmax_expr, qdt_l1_expr
 from repro_torch.data.images import blobs
 from repro_torch.kernels import erode_chain as TE
 from repro_torch.kernels import geodesic_chain as TG
+from repro_torch.kernels import qdt_chain as TQ
+from repro_torch.kernels.common import qdt_acc_dtype
 
 pytestmark = pytest.mark.cuda
 
@@ -99,3 +101,69 @@ def test_compile_cuda_engine_matches_torch_engine(cuda, dtype):
     want = compile(hmax_expr(h), x.shape, x.dtype, "torch")(x)
     assert got.device.type == "cuda" and _same(got, want)
     assert TG.geodesic_tile_step.launches > before
+
+
+QDT_DTYPES = (np.uint8, np.uint16, np.int32, np.float32, np.float64)
+
+
+def _qdt_image(rng, shape, dtype):
+    """Float NaN and the int32 extremes, where the residual wraps."""
+    if dtype == np.int32:
+        x = rng.integers(-2**31, 2**31, shape, dtype=np.int64)
+        x[rng.random(shape) < 0.05] = 2**31 - 1
+        x[rng.random(shape) < 0.05] = -2**31
+        return x.astype(np.int32)
+    return _rand(rng, shape, dtype)
+
+
+@pytest.mark.parametrize("dtype", QDT_DTYPES, ids=lambda d: d.__name__)
+def test_qdt_kernels_match_plain_versions(cuda, dtype):
+    rng = np.random.default_rng(6)
+    f = torch.from_numpy(_qdt_image(rng, (H, W), dtype)).to(cuda)
+    acc = qdt_acc_dtype(f.dtype)
+    r = torch.from_numpy(rng.integers(0, 90, (H, W))).to(cuda, acc)
+    d = torch.from_numpy(rng.integers(0, 50, (H, W), dtype=np.int32)).to(
+        cuda)
+
+    def grid(shape, hi):
+        return torch.from_numpy(rng.integers(0, hi, shape,
+                                             dtype=np.int32)).to(cuda)
+
+    geo = dict(fuse_k=K, band_h=BAND, bands_per_image=BPI)
+    rows, tiles = (H // BAND, 1), (H // BAND, W // TILE)
+    base, act = grid(rows, 99), grid(rows, 2)
+    for got, want in zip(
+            TQ.qdt_chain_step(f, r, d, base, active=act, **geo),
+            TQ.qdt_chain_step_plain(f, r, d, base, active=act, **geo)):
+        assert _same(got, want)
+    base, act = grid(tiles, 99), grid(tiles, 2)
+    for got, want in zip(
+            TQ.qdt_tile_step(f, r, d, base, tile_w=TILE, active=act, **geo),
+            TQ.qdt_tile_step_plain(f, r, d, base, tile_w=TILE, active=act,
+                                   **geo)):
+        assert _same(got, want)
+    cap = 3
+    fp = f[: cap * (BAND + 2 * K), : TILE + 2 * K].contiguous()
+    rm = r[: cap * BAND, :TILE].contiguous()
+    dm = d[: cap * BAND, :TILE].contiguous()
+    valid = torch.tensor([[1], [0], [1]], dtype=torch.int32, device=cuda)
+    base = torch.tensor([[4], [9], [31]], dtype=torch.int32, device=cuda)
+    cargs = dict(fuse_k=K, band_h=BAND, tile_w=TILE)
+    for got, want in zip(
+            TQ.qdt_compact_step(fp, rm, dm, valid, base, **cargs),
+            TQ.qdt_compact_step_plain(fp, rm, dm, valid, base, **cargs)):
+        assert _same(got, want)
+
+
+@pytest.mark.parametrize("expr", ("qdt", "qdt_l1"))
+def test_compile_qdt_cuda_engine_matches_torch_engine(cuda, expr):
+    f = np.stack([blobs(200, 300, np.uint8, seed=s) for s in range(3)])
+    x = torch.from_numpy(f).to(cuda)
+    e = E.qdt(E.input("f")) if expr == "qdt" else qdt_l1_expr()
+    before = TQ.qdt_tile_step.launches
+    got = compile(e, x.shape, x.dtype)(x)
+    want = compile(e, x.shape, x.dtype, "torch")(x)
+    got, want = (got, want) if expr == "qdt" else ((got,), (want,))
+    assert all(g.device.type == "cuda" and _same(g, w)
+               for g, w in zip(got, want, strict=True))
+    assert TQ.qdt_tile_step.launches > before

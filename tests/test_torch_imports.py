@@ -79,6 +79,20 @@ def test_default_device_is_the_gpu_and_raises_without_one():
                  lambda: ops.reconstruct(x, x)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+    # so do the engine entry points, whatever device their input is on
+    engine = {
+        "morph_chain": lambda **kw: ops.morph_chain(x, 2, **kw),
+        "geodesic_chain": lambda **kw: ops.geodesic_chain(x, x, 2, **kw),
+        "reconstruct_with_stats": lambda **kw: ops.reconstruct_with_stats(
+            x, x, **kw)[0],
+        "qdt_planes": lambda **kw: ops.qdt_planes(x, **kw)[0],
+        "qdt": lambda **kw: operators.qdt(x, **kw),
+        "qdt-max_s": lambda **kw: operators.qdt(x, 3, **kw),
+    }
+    for name, call in engine.items():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+        assert call(device="cpu").device.type == "cpu", name
     # asking for the CPU runs there
     assert operators.hmax(x, 3, device="cpu").device.type == "cpu"
     assert ops.erode(x, 2, device="cpu").device.type == "cpu"

@@ -29,6 +29,18 @@ IDS = [f"{d.__name__}-{op}" for d, op in CASES]
 H, W, BAND, K, BPI, TILE = 96, 256, 16, 4, 2, 128
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread while this module runs: under several pytest
+    workers on one machine each worker's torch thread pool
+    oversubscribes the cores and its threads spin, which made cases
+    here up to 100× slower than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rand(rng, shape, dtype, nan=False):
     if np.issubdtype(dtype, np.floating):
         x = rng.standard_normal(shape).astype(dtype)

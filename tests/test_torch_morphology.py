@@ -114,11 +114,12 @@ def test_float64_kernel_path_matches_own_oracle(op):
     rng = np.random.default_rng(4)
     f = torch.from_numpy(rng.standard_normal((2, 21, 30)))
     plan = TC.ChainPlan(16, 8, 128, 32, 2, 3, n_images=2)
-    got = TO.morph_chain(f, 19, op, "cuda", plan=plan)
+    got = TO.morph_chain(f, 19, op, "cuda", plan=plan, device="cpu")
     want = TM.erode(f, 19) if op == "erode" else TM.dilate(f, 19)
     assert got.dtype == torch.float64 and torch.equal(got, want)
     m = f + 0.5 if op == "dilate" else f - 0.5
     marker = m - 1.0 if op == "dilate" else m + 1.0
-    got = TO.geodesic_chain(marker, m, 11, op, "cuda", plan=plan)
+    got = TO.geodesic_chain(marker, m, 11, op, "cuda", plan=plan,
+                            device="cpu")
     step = TM.geodesic_dilate if op == "dilate" else TM.geodesic_erode
     assert torch.equal(got, step(marker, m, 11))

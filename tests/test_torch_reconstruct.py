@@ -25,6 +25,18 @@ PLANS = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread while this module runs: under several pytest
+    workers on one machine each worker's torch thread pool
+    oversubscribes the cores and its threads spin, which made cases
+    here up to 100× slower than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _plan(tile_w, threshold):
     return ChainPlan(16, 8, 384, 48, 3, 1, n_images=2,
                      compact_threshold=threshold, tile_w=tile_w)
@@ -62,7 +74,7 @@ def test_reconstruct_stats_match_reference(kind, dtype, op):
         jnp.asarray(marker), jnp.asarray(mask), op, "pallas", plan=plan)
     port, port_stats = TO.reconstruct_with_stats(
         torch.from_numpy(marker), torch.from_numpy(mask), op, "cuda",
-        plan=plan_from_key(plan.key))
+        plan=plan_from_key(plan.key), device="cpu")
     assert np.array_equal(np.asarray(ref), port.numpy())
     _assert_stats_equal(ref_stats, port_stats)
     assert int(port_stats.chunks) > 1
@@ -81,7 +93,7 @@ def test_budget_truncation_matches_reference():
         max_chunks=3, plan=plan)
     port, port_stats = TO.reconstruct_with_stats(
         torch.from_numpy(marker), torch.from_numpy(mask), "dilate", "cuda",
-        max_chunks=3, plan=plan_from_key(plan.key))
+        max_chunks=3, plan=plan_from_key(plan.key), device="cpu")
     assert np.array_equal(np.asarray(ref), port.numpy())
     _assert_stats_equal(ref_stats, port_stats)
     assert not bool(port_stats.converged)
@@ -93,7 +105,7 @@ def test_oracle_engine_stats_match_reference():
         jnp.asarray(marker[0]), jnp.asarray(mask[0]), "dilate", "xla")
     port, port_stats = TO.reconstruct_with_stats(
         torch.from_numpy(marker[0]), torch.from_numpy(mask[0]), "dilate",
-        "torch")
+        "torch", device="cpu")
     assert np.array_equal(np.asarray(ref), port.numpy())
     _assert_stats_equal(ref_stats, port_stats)
 
@@ -106,7 +118,8 @@ def test_planned_reconstruction_equals_oracle_per_image():
     marker = np.zeros_like(mask)
     marker[:, :3, :3] = mask[:, :3, :3]
     out, stats = TO.reconstruct_with_stats(
-        torch.from_numpy(marker), torch.from_numpy(mask), "dilate")
+        torch.from_numpy(marker), torch.from_numpy(mask), "dilate",
+        device="cpu")
     for i in range(2):
         want = TM.dilate_reconstruct(torch.from_numpy(marker[i]),
                                      torch.from_numpy(mask[i]))
