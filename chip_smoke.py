@@ -7,12 +7,13 @@ Phases, each of which makes the script exit non-zero when it fails:
 1. environment: the card's name and power limit, and the build of every
    CUDA kernel from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
    source, all started together);
-2. kernels: each of the seven kernels against its plain PyTorch version
+2. kernels: each of the ten kernels against its plain PyTorch version
    on the card — the four morphology kernels over uint8/uint16/float32
    and both ops, the three QDT kernels over uint8/uint16/int32 (with its
-   extremes)/float32/float64 — at ragged sub-tiles, N=3 stacks, activity
-   grids with zeros, ragged per-cell QDT offsets, sentinel slots, NaN
-   inputs, and at the main path's shapes;
+   extremes)/float32/float64, the three gdt kernels over float32/float64
+   and λ ∈ {0, 1, 0.37} (with +inf distances and pad cells) — at ragged
+   sub-tiles, N=3 stacks, activity grids with zeros, ragged per-cell QDT
+   offsets, sentinel slots, NaN inputs, and at the main path's shapes;
 3. main path, one run per slice of the port, each with the launch
    counts set to 0 just before it and read just after; every kernel of
    the slice must have been launched in its run, and every result must
@@ -21,8 +22,11 @@ Phases, each of which makes the script exit non-zero when it fails:
    the morphology slice's long chains, HMAX, opening by reconstruction,
    ASF₃, a fixed geodesic chain and a row-only reconstruction; the QDT
    slice's ``E.qdt`` (uint8, float32, and uint8 under a row-only plan)
-   and ``qdt_l1_expr`` (plus small uint16 cases of both slices);
-4. trace: one profiled run of four main-path cases (the device's busy
+   and ``qdt_l1_expr`` (plus small uint16 cases of both slices); the gdt
+   slice's ``E.gdt`` (λ = 1 and λ = 0, and under a row-only plan), the
+   scribble and h-minima segmentations, and small float64 and raster
+   cases (the raster result must also equal the wavefront result);
+4. trace: one profiled run of five main-path cases (the device's busy
    and idle share, and where its time goes);
 5. timing: each kernel, its plain version and one PyTorch yardstick
    call at the main path's shapes, beside the bound computed from the
@@ -271,6 +275,64 @@ def check_qdt_kernels(checks: Checks) -> None:
     sync()
 
 
+def gdt_planes(shape, dtype, gen):
+    """gdt check planes: d in [0, 20) with +inf, i uniform in [0, 3]
+    (where a contracted weight would round differently) with NaN, and s
+    in [0, 1) with pad cells (-1) inside the image."""
+    def u(scale=1.0):
+        return torch.rand(shape, generator=gen, device=DEVICE,
+                          dtype=dtype) * scale
+
+    def where(frac):
+        return torch.rand(shape, generator=gen, device=DEVICE) < frac
+
+    d, i, s = u(20.0), u(3.0), u()
+    d[where(0.05)] = float("inf")
+    i[where(0.01)] = float("nan")
+    s[where(0.05)] = -1.0
+    return d, i, s
+
+
+def check_gdt_kernels(checks: Checks) -> None:
+    from repro_torch.kernels import gdt_chain as GD
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(2)
+    grids = [(3, 2, 160, 480, 160, 16), (3, 3, 32, 256, 128, 8),
+             (1, 2, 64, 384, 128, 32)]
+    for dtype in GD.DTYPES:
+        for lamb in (0.0, 1.0, 0.37):
+            for n, bpi, bh, w, tw, k in grids:
+                h = n * bpi * bh
+                what = (f"{dtype} lamb={lamb} h={h} w={w} band={bh} "
+                        f"tile={tw} k={k}")
+                d, i, s = gdt_planes((h, w), dtype, gen)
+                args = dict(lamb=lamb, fuse_k=k, band_h=bh,
+                            bands_per_image=bpi)
+                for name, grid, extra in (
+                        ("gdt_chain_step", (h // bh, 1), {}),
+                        ("gdt_tile_step", (h // bh, w // tw),
+                         {"tile_w": tw})):
+                    act = (torch.rand(grid, generator=gen, device=DEVICE)
+                           < 0.6).to(torch.int32)
+                    kern, plain = (getattr(GD, name),
+                                   getattr(GD, name + "_plain"))
+                    checks.record(
+                        name, kern(d, i, s, active=act, **args, **extra),
+                        plain(d, i, s, active=act, **args, **extra), what)
+                cap = 5
+                win = gdt_planes((cap * (bh + 2 * k), tw + 2 * k), dtype,
+                                 gen)
+                valid = torch.tensor([[1], [0], [1], [1], [0]],
+                                     dtype=torch.int32, device=DEVICE)
+                cargs = dict(lamb=lamb, fuse_k=k, band_h=bh, tile_w=tw)
+                checks.record(
+                    "gdt_compact_step",
+                    GD.gdt_compact_step(*win, valid, **cargs),
+                    GD.gdt_compact_step_plain(*win, valid, **cargs), what)
+    sync()
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path at paper scale, through compile()
 # ---------------------------------------------------------------------------
@@ -283,6 +345,7 @@ CHAIN = 1500
 def kernel_modules():
     from repro_torch.kernels import erode_chain as EC
     from repro_torch.kernels import geodesic_chain as GC
+    from repro_torch.kernels import gdt_chain as GD
     from repro_torch.kernels import qdt_chain as QC
 
     return {"chain_step": EC.chain_step,
@@ -291,7 +354,10 @@ def kernel_modules():
             "geodesic_compact_step": GC.geodesic_compact_step,
             "qdt_chain_step": QC.qdt_chain_step,
             "qdt_tile_step": QC.qdt_tile_step,
-            "qdt_compact_step": QC.qdt_compact_step}
+            "qdt_compact_step": QC.qdt_compact_step,
+            "gdt_chain_step": GD.gdt_chain_step,
+            "gdt_tile_step": GD.gdt_tile_step,
+            "gdt_compact_step": GD.gdt_compact_step}
 
 
 #: Each slice of the port: the kernels its main path must launch.
@@ -299,11 +365,19 @@ SLICES = {
     "morphology": ("chain_step", "geodesic_chain_step",
                    "geodesic_tile_step", "geodesic_compact_step"),
     "qdt": ("qdt_chain_step", "qdt_tile_step", "qdt_compact_step"),
+    "gdt": ("gdt_chain_step", "gdt_tile_step", "gdt_compact_step"),
 }
 
 #: Main-path cases whose sparse tail must reach a compact kernel.
 MUST_COMPACT = {"hmax40/uint8": "geodesic_compact_step",
-                "qdt/uint8": "qdt_compact_step"}
+                "qdt/uint8": "qdt_compact_step",
+                "gdt/float32": "gdt_compact_step"}
+
+#: Main-path cases that must also equal another case's result.
+SAME_AS = {"gdt-raster/float32-2x256": "gdt/float32-2x256"}
+
+#: Seeds per image of the gdt cases.
+GDT_SEEDS = 16
 
 
 def stack(dtype, n=None, size=None, seed0=0):
@@ -314,12 +388,37 @@ def stack(dtype, n=None, size=None, seed0=0):
     return torch.from_numpy(x).to(DEVICE)
 
 
+def gdt_seeds(shape, seed=0) -> torch.Tensor:
+    """GDT_SEEDS single-pixel seeds per image (1.0), else 0.0."""
+    rng = np.random.default_rng(seed)
+    n, h, w = shape
+    seeds = np.zeros(shape, np.float32)
+    for img in seeds:
+        img[rng.integers(0, h, GDT_SEEDS), rng.integers(0, w, GDT_SEEDS)] = 1
+    return torch.from_numpy(seeds).to(DEVICE)
+
+
+def scribbles(shape, seed=1) -> torch.Tensor:
+    """Label 1 on eight 5×5 squares per image, label 2 on the one-pixel
+    frame: the two seed sets a scribble-annotation tool sends."""
+    rng = np.random.default_rng(seed)
+    n, h, w = shape
+    marks = np.zeros(shape, np.float32)
+    marks[:, 0, :] = marks[:, -1, :] = marks[:, :, 0] = marks[:, :, -1] = 2
+    for img in marks:
+        ys, xs = rng.integers(8, h - 13, 8), rng.integers(8, w - 13, 8)
+        for y, x in zip(ys, xs):
+            img[y:y + 5, x:x + 5] = 1
+    return torch.from_numpy(marks).to(DEVICE)
+
+
 def main_cases(images) -> dict:
     """Slice → (name, expr, inputs, plan) of each of its main-path
     cases."""
     from repro_torch.api import E, asf_expr, hmax_expr, qdt_l1_expr
     from repro_torch.api import opening_by_reconstruction_expr as obr
     from repro_torch.core.chain import plan_chain
+    from repro_torch.gdt import gdt_expr, seg_hmin_expr, seg_scribble_expr
 
     f = E.input("f")
     u8, f32, u16 = images["uint8"], images["float32"], images["uint16"]
@@ -331,6 +430,21 @@ def main_cases(images) -> dict:
                           n_images_resident=3, n_images=N, convergent=True,
                           tile_w=0)
     rec = E.reconstruct(E.input("marker"), E.input("mask"), op="dilate")
+    seeds, marks = gdt_seeds(f32.shape), scribbles(f32.shape)
+    gdt_rows = plan_chain(SIZE, SIZE, torch.float32, None,
+                          n_images_resident=3, n_images=N, convergent=True,
+                          tile_w=0)
+    raster = plan_chain(256, 256, torch.float32, None, n_images_resident=3,
+                        n_images=2, convergent=True, schedule="raster")
+
+    def gdt(lamb):
+        return gdt_expr(E.input("image"), E.input("seeds"), lamb=lamb,
+                        nu=1e6)
+
+    def small(dtype):
+        image = stack(np.float32, n=2, size=256).to(dtype)
+        return image, gdt_seeds(image.shape, seed=2).to(dtype)
+
     return {
         "morphology": [
             ("erode1500/uint8", E.erode(CHAIN, f), (u8,), None),
@@ -351,6 +465,18 @@ def main_cases(images) -> dict:
             ("qdt-rows/uint8", E.qdt(f), (u8,), qdt_rows),
             ("qdt/uint16-2x256", E.qdt(f), (u16,), None),
         ],
+        "gdt": [
+            ("gdt/float32", gdt(1.0), (f32, seeds), None),
+            ("gdt-l0/float32", gdt(0.0), (f32, seeds), None),
+            ("seg_scribble/float32", seg_scribble_expr(), (f32, marks),
+             None),
+            ("seg_hmin/float32", seg_hmin_expr(0.1), (f32,), None),
+            ("gdt-rows/float32", gdt(1.0), (f32, seeds), gdt_rows),
+            ("gdt/float64-2x256", gdt(1.0), small(torch.float64), None),
+            ("gdt/float32-2x256", gdt(1.0), small(torch.float32), None),
+            ("gdt-raster/float32-2x256", gdt(1.0), small(torch.float32),
+             raster),
+        ],
     }
 
 
@@ -359,7 +485,7 @@ def run_main_path(cases, counters) -> list:
     unless each "cuda" result equals the "torch" engine's."""
     from repro_torch.api import compile
 
-    rows = []
+    rows, results = [], {}
     for name, expr, inputs, plan in cases:
         shape, dtype = tuple(inputs[0].shape), inputs[0].dtype
         exe = compile(expr, shape, dtype, "cuda", plan=plan,
@@ -385,6 +511,11 @@ def run_main_path(cases, counters) -> list:
                     f"(max_abs_err={max_abs_err(o, w)})")
         if name in MUST_COMPACT and not launched[MUST_COMPACT[name]]:
             raise AssertionError(f"{name} never reached the compact kernel")
+        results[name] = outs
+        if name in SAME_AS and not all(
+                same(o, w) for o, w in zip(outs, results[SAME_AS[name]],
+                                           strict=True)):
+            raise AssertionError(f"main path {name} != {SAME_AS[name]}")
         rows.append(dict(case=name, shape=list(shape),
                          dtype=str(dtype).removeprefix("torch."),
                          plans=[list(p.key) for p in exe.all_plans],
@@ -414,14 +545,17 @@ def time_main_path(rows, card: str) -> None:
 
 
 TRACED = ("erode1500/uint8", "hmax40/uint8", "reconstruct-rows/float32",
-          "qdt/uint8")
+          "qdt/uint8", "gdt/float32")
+
+#: Name parts of the port's own kernels in a trace.
+PORT_KERNELS = ("fused_kernel", "qdt_kernel", "gdt_kernel")
 
 
 def trace_main_path(rows, card: str) -> list:
     """One profiled run of a few main-path cases: the device's busy and
     idle share of the run's wall time, split into the port's kernels
-    (``fused_kernel``, ``qdt_kernel``), other device work (oracle tails,
-    padding, gathers, scatters, flags) and copies."""
+    (``PORT_KERNELS``), other device work (oracle tails, padding,
+    gathers, scatters, flags) and copies."""
     from torch.profiler import ProfilerActivity, profile
 
     out = []
@@ -442,8 +576,7 @@ def trace_main_path(rows, card: str) -> list:
             if ev.device_type != torch.autograd.DeviceType.CUDA:
                 continue
             us = ev.time_range.elapsed_us()
-            key = ("kernels" if ("fused_kernel" in ev.name
-                                 or "qdt_kernel" in ev.name) else
+            key = ("kernels" if any(k in ev.name for k in PORT_KERNELS) else
                    "copies" if "memcpy" in ev.name.lower() else "other")
             split[key] += us
             short = ev.name.replace("(anonymous namespace)::", "")
@@ -471,6 +604,7 @@ def trace_main_path(rows, card: str) -> list:
 
 _MORPH_CU = "src/repro_torch/kernels/csrc/morph_chain.cu"
 _QDT_CU = "src/repro_torch/kernels/csrc/qdt_chain.cu"
+_GDT_CU = "src/repro_torch/kernels/csrc/gdt_chain.cu"
 
 #: kernel → (the TPU kernel it replaces, its source)
 KERNEL_META = {
@@ -484,6 +618,9 @@ KERNEL_META = {
     "qdt_chain_step": ("src/repro/kernels/qdt_chain.py:96", _QDT_CU),
     "qdt_tile_step": ("src/repro/kernels/qdt_chain.py:192", _QDT_CU),
     "qdt_compact_step": ("src/repro/kernels/qdt_chain.py:281", _QDT_CU),
+    "gdt_chain_step": ("src/repro/kernels/gdt_chain.py:150", _GDT_CU),
+    "gdt_tile_step": ("src/repro/kernels/gdt_chain.py:236", _GDT_CU),
+    "gdt_compact_step": ("src/repro/kernels/gdt_chain.py:312", _GDT_CU),
 }
 
 
@@ -615,6 +752,119 @@ def time_qdt_kernels(checks: Checks, images) -> dict:
     return out
 
 
+def library_gdt(d, weights, pad, k: int):
+    """K steps of F.pad with +inf, the 8 shifted candidates with
+    precomputed ``weights``, ``torch.minimum`` and the pad clamp's
+    ``torch.where``: one PyTorch yardstick for a gdt chunk, never used
+    by the port."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.gdt_chain import OFFSETS
+
+    h, w = d.shape[-2:]
+    for _ in range(k):
+        p = F.pad(d, (1, 1, 1, 1), value=float("inf"))
+        best = d
+        for (dy, dx), wt in zip(OFFSETS, weights):
+            best = torch.minimum(
+                best, p[..., 1 - dy:1 - dy + h, 1 - dx:1 - dx + w] + wt)
+        d = torch.where(pad, float("inf"), best)
+    return d
+
+
+def gdt_ops(pixels: int, k: int, weighted: bool) -> int:
+    """Operations of one gdt chunk over ``pixels`` needed pixels: the
+    weights once (8 × subtract, abs, multiply, add), then 8 adds, 8 mins
+    and the clamp per pixel per step."""
+    return pixels * ((32 if weighted else 0) + 17 * k)
+
+
+def time_gdt_kernels(checks: Checks, images) -> dict:
+    """The gdt kernels at the main path's shapes: the first chunk of
+    ``gdt/float32`` (λ = 1, every cell active) on the tile and row
+    plans, and a full compact workspace; each held against its plain
+    version there."""
+    from repro_torch.core.chain import plan_chain
+    from repro_torch.kernels import gdt_chain as GD
+    from repro_torch.kernels import ops as K
+
+    f32 = images["float32"]
+    lamb, out = 1.0, {}
+    plans = {"gdt_tile_step": plan_chain(SIZE, SIZE, torch.float32, None,
+                                         n_images_resident=3, n_images=N,
+                                         convergent=True),
+             "gdt_chain_step": plan_chain(SIZE, SIZE, torch.float32, None,
+                                          n_images_resident=3, n_images=N,
+                                          convergent=True, tile_w=0)}
+
+    def staged(plan):
+        bottom = float("-inf")
+        return K.gdt_stage(K._stacked(K._pad(f32, plan, bottom)),
+                           K._stacked(K._pad(gdt_seeds(f32.shape), plan,
+                                             bottom)), 1e6)
+
+    def yardstick(d, i, s, k, shape4):
+        d4, i4 = d.reshape(shape4), i.reshape(shape4)
+        return (d4, GD.gdt_weights(i4, lamb), s.reshape(shape4) < 0, k)
+
+    for name, plan in plans.items():
+        k, bh = plan.fuse_k, plan.band_h
+        d, i, s = staged(plan)
+        act = torch.ones((plan.total_bands, plan.n_tiles), dtype=torch.int32,
+                         device=DEVICE)
+        args = dict(lamb=lamb, fuse_k=k, band_h=bh, active=act,
+                    bands_per_image=plan.n_bands)
+        if plan.n_tiles > 1:
+            args["tile_w"] = plan.tile_w
+        kern, plain = getattr(GD, name), getattr(GD, name + "_plain")
+        checks.record(name, kern(d, i, s, **args), plain(d, i, s, **args),
+                      "main-path shape")
+        lib = yardstick(d, i, s, k, (N, 1, plan.height_pad, plan.width_pad))
+        b_ms, b_by = bound(4 * d.numel() * d.element_size(),
+                           gdt_ops(d.numel(), k, True))
+        out[name] = dict(
+            ms=cuda_ms(lambda: kern(d, i, s, **args)),
+            plain_ms=cuda_ms(lambda: plain(d, i, s, **args), reps=3),
+            library_ms=cuda_ms(lambda: library_gdt(*lib), reps=3),
+            bound_ms=b_ms, bound_by=b_by,
+            shape=f"({d.shape[0]}, {d.shape[1]}) float32 K={k} lamb={lamb} "
+                  f"cells {bh}x{plan.tile_w or plan.width_pad}, "
+                  f"{plan.total_tiles} active")
+
+    plan = plans["gdt_tile_step"]
+    k, bh, tw = plan.fuse_k, plan.band_h, plan.tile_w
+    cap = plan.compact_capacity
+    d, i, s = staged(plan)
+    idx = torch.arange(cap, dtype=torch.int32, device=DEVICE) * 2
+    win = [K._gather_patches(x, idx, plan, ident) for x, ident in
+           ((d, GD.D_IDENT), (i, GD.I_IDENT), (s, GD.S_IDENT))]
+    valid = torch.ones((cap, 1), dtype=torch.int32, device=DEVICE)
+    cargs = dict(lamb=lamb, fuse_k=k, band_h=bh, tile_w=tw)
+    checks.record("gdt_compact_step",
+                  GD.gdt_compact_step(*win, valid, **cargs),
+                  GD.gdt_compact_step_plain(*win, valid, **cargs),
+                  "main-path shape")
+    ph, pw = bh + 2 * k, tw + 2 * k
+    lib = yardstick(*win, k, (cap, 1, ph, pw))
+    # step s of K needs the centre and K - s pixels around it; the
+    # weights are needed where step 1 is
+    n_valid = int(valid.sum())
+    region = sum((bh + 2 * j) * (tw + 2 * j) for j in range(k))
+    ops = (32 * (bh + 2 * k - 2) * (tw + 2 * k - 2) + 17 * region) * n_valid
+    esize = d.element_size()
+    b_ms, b_by = bound((3 * cap * ph * pw + cap * bh * tw) * esize, ops)
+    out["gdt_compact_step"] = dict(
+        ms=cuda_ms(lambda: GD.gdt_compact_step(*win, valid, **cargs)),
+        plain_ms=cuda_ms(lambda: GD.gdt_compact_step_plain(*win, valid,
+                                                           **cargs), reps=3),
+        library_ms=cuda_ms(lambda: library_gdt(*lib), reps=3),
+        bound_ms=b_ms, bound_by=b_by,
+        shape=f"{cap} patches of ({ph}, {pw}) float32 K={k} lamb={lamb}, "
+              f"all valid")
+    sync()
+    return out
+
+
 def time_kernels(checks: Checks, images) -> dict:
     """Kernel, plain version and yardstick at the main path's shapes;
     each kernel is also held against its plain version there."""
@@ -734,6 +984,7 @@ def main() -> int:
     t0 = time.perf_counter()
     check_kernels(checks)
     check_qdt_kernels(checks)
+    check_gdt_kernels(checks)
     log(f"kernels: {checks.count} kernel-vs-plain checks equal "
         f"({time.perf_counter() - t0:.1f} s)")
 
@@ -761,15 +1012,18 @@ def main() -> int:
 
     timing = time_kernels(checks, images)
     timing.update(time_qdt_kernels(checks, images))
+    timing.update(time_gdt_kernels(checks, images))
     for kname, t in timing.items():
         log(f"kernel {kname} [{t['shape']}]: {t['ms']:.3f} ms, plain "
             f"{t['plain_ms']:.3f} ms, library {t['library_ms']:.3f} ms, "
             f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}) ({smi})")
+    log(f"kernels: {checks.count} kernel-vs-plain checks equal in all")
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": name, "nvidia_smi": smi, "build_s": build_s,
+         "checks": checks.count,
          "main_path": [{k: v for k, v in r.items() if k != "run"}
                        for r in rows],
          "traces": traces, "kernels": timing}, indent=1))

@@ -2,9 +2,11 @@
 
 Module names mirror ``src/repro/``: each reference module has one
 counterpart here, written in plain PyTorch over tensors with an
-explicit ``device``.  The four fused Pallas kernels of the main path
-(fixed chains and Alg. 4 reconstruction) are hand-written CUDA C++ for
-Hopper (``kernels/csrc/morph_chain.cu``), built with ``nvcc`` at first
-use.  This package never imports ``jax`` or anything of ``repro``; only
-the tests hold the two against each other, bit for bit.
+explicit ``device``.  The reference's ten fused Pallas kernels are
+hand-written CUDA C++ for Hopper (``kernels/csrc``: ``morph_chain.cu``
+for the fixed chains and the Alg. 4 reconstruction, ``qdt_chain.cu``
+for the quasi-distance transform, ``gdt_chain.cu`` for the
+grey-weighted geodesic distance), built with ``nvcc`` at first use.
+This package never imports ``jax`` or anything of ``repro``; only the
+tests hold the two against each other, bit for bit.
 """

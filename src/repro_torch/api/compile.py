@@ -35,9 +35,6 @@ CACHE_CAPACITY = 512
 #: Segment kinds whose work is convergence-driven (vs fixed-length).
 _CONVERGENT_KINDS = ("reconstruct", "qdt", "gdt")
 
-#: Segment kinds of later slices of the port → their ROADMAP item.
-_NOT_PORTED = {"gdt": "ROADMAP.md, queue 1, item 6 (gdt)"}
-
 _cache: collections.OrderedDict = collections.OrderedDict()
 _lock = threading.Lock()
 _hits = 0
@@ -150,12 +147,13 @@ def _group_plan(program, idxs, h, w, dtype, n, convergent):
 def _build(expr, shape3, was_2d, dtype, backend, plan, max_chunks,
            specialize, device):
     program = lower(expr)
-    for seg in program.segments:
-        if seg.kind in _NOT_PORTED:
-            raise NotImplementedError(
-                f"{seg.kind} segments are not ported to repro_torch yet "
-                f"({_NOT_PORTED[seg.kind]})")
     n, h, w = shape3
+    if (not dtype.is_floating_point
+            and any(s.kind == "gdt" for s in program.segments)):
+        raise TypeError(
+            f"gdt requires a float dtype (the distance plane is a float "
+            f"lattice), got {dtype}"
+        )
     if plan is not None:
         # a mismatched schedule is a caller bug on either engine
         if plan.n_images != n:

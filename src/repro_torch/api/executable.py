@@ -6,9 +6,9 @@ as **one padded program per plan group**: every canonical input is
 padded to the group's :class:`~repro_torch.core.chain.ChainPlan` once,
 all kernel segments run on the vertically stacked ``(N·H_pad, W_pad)``
 working arrays (chains through ``chain_step``, fixed geodesic chains
-through ``geodesic_chain_step``, reconstructions and the QDT through
-the requeue scheduler in ``kernels/ops.py``), and outputs are cropped
-once.
+through ``geodesic_chain_step``, reconstructions, the QDT and the gdt
+through the requeue scheduler in ``kernels/ops.py`` — the gdt also
+through its raster sweeps), and outputs are cropped once.
 ``refill`` segments re-pad in place where a consumer needs a different
 absorbing identity.  Specialized mixed programs re-band between plan
 groups exactly as the reference does.
@@ -53,8 +53,9 @@ def _seg_need_fill(seg) -> str:
         return seg.param("fill")
     if seg.kind == "qdt":
         return "hi"  # the QDT iterates erosion
-    if seg.kind == "point":
-        # point outputs are re-masked by a refill before any consumer
+    if seg.kind in ("gdt", "point"):
+        # gdt stages its own planes from −inf-marked operands; point
+        # outputs are re-masked by a refill before any kernel consumer
         return "lo"
     return _NEED_FILL[seg.param("op")]
 
@@ -126,11 +127,11 @@ class Executable:
         """Run phase plus the convergence watchdog's verdict and chunk
         utilization: ``(outputs, converged, busy_chunks, cap_chunks)``.
         ``converged`` is a (N,) bool tensor, False for images whose
-        reconstruction or QDT exhausted the chunk budget; ``busy_chunks`` /
-        ``cap_chunks`` count the scheduler chunks the images consumed vs
-        the chunks the batch held every image for (both 0 without a
-        convergence-driven segment, and for the oracle engine, which
-        iterates to its own fixpoint)."""
+        reconstruction, QDT or gdt exhausted the chunk budget;
+        ``busy_chunks`` / ``cap_chunks`` count the scheduler chunks the
+        images consumed vs the chunks the batch held every image for
+        (both 0 without a convergence-driven segment, and for the oracle
+        engine, which iterates to its own fixpoint)."""
         all_ok = torch.ones((self.n_images,), dtype=torch.bool)
         if self.plan is None:
             return self._run_torch(canonical), all_ok, 0, 0
@@ -245,6 +246,12 @@ class Executable:
             elif seg.kind == "qdt":
                 vals[seg.dsts[0]], vals[seg.dsts[1]] = OPS.qdt_raw(
                     vals[seg.srcs[0]])
+            elif seg.kind == "gdt":
+                # Jacobi advances every shortest path by at least one
+                # edge per iteration; H·W bounds any simple path
+                vals[seg.dsts[0]] = K.gdt_fixpoint(
+                    vals[seg.srcs[0]], vals[seg.srcs[1]], seg.param("lamb"),
+                    seg.param("nu"), self.height * self.width + 2)
             elif seg.kind == "point":
                 env = {f"__p{j}": vals[s]
                        for j, s in enumerate(seg.srcs)}
@@ -369,6 +376,26 @@ class Executable:
                 # capacity: the longest image's chunks, for every image
                 util.append((int(state[1].sum()),
                              int(state[1].max()) * plan.n_images))
+        elif seg.kind == "gdt":
+            d0, ip, sp = K.gdt_stage(vals[seg.srcs[0]], vals[seg.srcs[1]],
+                                     seg.param("nu"))
+            lamb, budget = seg.param("lamb"), self._budget_rec(plan)
+            if plan.schedule == "raster":
+                d, rounds, img_conv = K._raster_gdt(d0, ip, sp, plan, lamb,
+                                                    budget)
+                if util is not None:
+                    # the sweeps run every image every round: no slack
+                    util.append((rounds * plan.n_images,
+                                 rounds * plan.n_images))
+            else:
+                d, img_conv, state = K._scheduled_gdt(d0, ip, sp, plan, lamb,
+                                                      budget)
+                if util is not None:
+                    util.append((int(state[1].sum()),
+                                 int(state[1].max()) * plan.n_images))
+            vals[seg.dsts[0]] = d
+            if conv is not None:
+                conv.append(img_conv)
         elif seg.kind == "point":
             env = {f"__p{j}": vals[s] for j, s in enumerate(seg.srcs)}
             vals[seg.dsts[0]] = eval_pointwise(seg.param("expr"), env, {}, {})

@@ -1,6 +1,6 @@
-"""Hand-written CUDA kernels for the fused morphology chains and the
-quasi-distance transform, their plain PyTorch versions, and the drivers
-built on them.
+"""Hand-written CUDA kernels for the fused morphology chains, the
+quasi-distance transform and the grey-weighted geodesic distance, their
+plain PyTorch versions, and the drivers built on them.
 
 Layer contract (mirrors ``repro.kernels``): every kernel wrapper takes
 its code path from the tensor it is given — a CPU tensor runs the

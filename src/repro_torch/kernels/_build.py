@@ -28,7 +28,7 @@ BUILD_DIR = (pathlib.Path(__file__).resolve().parents[3]
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 
 #: C signature of every launcher: (argtypes, source file).
 LAUNCHERS = {
@@ -53,6 +53,15 @@ LAUNCHERS = {
     "qdt_compact_step_launch": (
         [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
         "qdt_chain.cu"),
+    "gdt_chain_step_launch": (
+        [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _P],
+        "gdt_chain.cu"),
+    "gdt_tile_step_launch": (
+        [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _D, _P],
+        "gdt_chain.cu"),
+    "gdt_compact_step_launch": (
+        [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _P],
+        "gdt_chain.cu"),
 }
 
 _libs: dict = {}

@@ -1,8 +1,9 @@
 // Pieces shared by the fused morphology kernels for Hopper (sm_90a):
-// morph_chain.cu (erosion/dilation chains and geodesic steps) and
-// qdt_chain.cu (the quasi-distance transform).
+// morph_chain.cu (erosion/dilation chains and geodesic steps),
+// qdt_chain.cu (the quasi-distance transform) and gdt_chain.cu (the
+// grey-weighted geodesic distance).
 //
-// Both take a TB x TW sub-tile of one scheduling cell per block: a row
+// All take a TB x TW sub-tile of one scheduling cell per block: a row
 // band (n_tiles = 1, cell_w = array width), a band x column tile, or one
 // pre-pinned patch of a vertically stacked patch array (compact).  This
 // header holds the lattice identities, the NaN-propagating min/max,
@@ -60,8 +61,8 @@ __device__ __forceinline__ T pick(T a, T b) {
 // cell_w = array width), a band x column tile, or (compact) one
 // pre-pinned patch of a vertically stacked patch array.
 struct Geo {
-  const void* f;        // marker / input
-  const void* m;        // mask (geodesic only)
+  const void* f;        // marker / input (gdt: the distance plane)
+  const void* m;        // mask (geodesic) or grey-weight image (gdt)
   const int* active;    // per-cell activity or slot validity, or null
   void* out;            // new buffer
   int* changed;         // per-cell flag, zeroed by the caller
@@ -117,18 +118,32 @@ __device__ __forceinline__ Window locate(const Geo& g) {
   return w;
 }
 
-// The (WH, WW) window of src into dst (row stride WS), with rows outside
-// [rlo, rhi) and columns outside the array set to id.
-template <typename T>
-__device__ __forceinline__ void load_window(T* dst, const T* src,
-                                            const Geo& g, const Window& w,
-                                            T id) {
+// The (WH, WW) window of src, each pixel through map, into dst (row
+// stride WS), with rows outside [rlo, rhi) and columns outside the array
+// set to id.
+template <typename D, typename S, typename Map>
+__device__ __forceinline__ void load_window_as(D* dst, const S* src,
+                                               const Geo& g, const Window& w,
+                                               D id, Map map) {
   for (int i = threadIdx.x; i < w.WH * w.WW; i += kThreads) {
     const int r = i / w.WW, c = i % w.WW;
     const long long gr = w.wr + r, gc = w.wc + c;
     const bool in = gr >= w.rlo && gr < w.rhi && gc >= 0 && gc < g.src_w;
-    dst[r * w.WS + c] = in ? src[gr * g.src_w + gc] : id;
+    dst[r * w.WS + c] = in ? map(src[gr * g.src_w + gc]) : id;
   }
+}
+
+struct Same {
+  template <typename T>
+  __device__ __forceinline__ T operator()(T v) const { return v; }
+};
+
+// The (WH, WW) window of src into dst, pinned to id as load_window_as.
+template <typename T>
+__device__ __forceinline__ void load_window(T* dst, const T* src,
+                                            const Geo& g, const Window& w,
+                                            T id) {
+  load_window_as(dst, src, g, w, id, Same());
 }
 
 // The sub-tile's centre of src, copied through to out.

@@ -2,13 +2,14 @@
 main-path part).
 
 This module owns the *engine*: padding/stacking layout helpers, the
-fixed-chain drivers (``morph_chain``, ``geodesic_chain``) and the
+fixed-chain drivers (``morph_chain``, ``geodesic_chain``), the
 active-cell requeue scheduler (``_drive_scheduler`` and the
-``_scheduled_reconstruct`` / ``_scheduled_qdt`` step bundles) that
-``repro_torch.api``'s executables drive.  The operator sugar
-(``erode``/``dilate``/``opening``/``closing``/``reconstruct``/
-``qdt_planes``) builds an expression and routes through
-``repro_torch.api.compile``.
+``_scheduled_reconstruct`` / ``_scheduled_qdt`` / ``_scheduled_gdt``
+step bundles) and the gdt's raster sweeps (``_raster_gdt``) and Jacobi
+oracle (``gdt_fixpoint``) that ``repro_torch.api``'s executables drive.
+The operator sugar (``erode``/``dilate``/``opening``/``closing``/
+``reconstruct``/``qdt_planes``/``gdt``) builds an expression and routes
+through ``repro_torch.api.compile``.
 
 Every entry point runs on ``device`` (``None`` is the GPU, which raises
 without one; the CPU must be asked for with ``device="cpu"``) and moves
@@ -55,6 +56,10 @@ from repro_torch.kernels.common import (as_bits, bits_value, cell_view,
                                         gather_windows, ident_for,
                                         qdt_acc_dtype)
 from repro_torch.kernels.erode_chain import chain_step
+from repro_torch.kernels.gdt_chain import (D_IDENT, I_IDENT, S_IDENT,
+                                           gdt_chain_step, gdt_compact_step,
+                                           gdt_tile_step, gdt_weights, relax,
+                                           shift2)
 from repro_torch.kernels.geodesic_chain import (geodesic_chain_step,
                                                 geodesic_compact_step,
                                                 geodesic_tile_step)
@@ -601,3 +606,177 @@ def qdt_planes(f: torch.Tensor, backend: str | None = None,
                       backend, plan=plan, max_chunks=max_chunks,
                       device=device)
     return exe(f)
+
+
+# ---------------------------------------------------------------------------
+# generalised geodesic distance transform (grey-weighted, FastGeodis-style)
+# ---------------------------------------------------------------------------
+
+
+def gdt_stage(ip: torch.Tensor, sp: torch.Tensor, nu: float):
+    """Derive the kernels' three resident planes from the *padded*
+    image/seed operands (both arrive with the float lattice bottom,
+    −inf, as their pad fill).
+
+    Returns ``(d0, i, s)``: the initial distance plane ``d0 = nu·(1−S)``
+    (+inf on pads), the sanitized image (0 on pads, so the weight never
+    computes ``|−inf − (−inf)|``) and the seed/pad-marker plane (clipped
+    to [0, 1] in the real region, −1 on pads — the value the kernels
+    re-clamp ``d = +inf`` on after every step).  This is the one place
+    that sanitizes: the kernels and the raster sweeps assume the planes
+    are in this form.
+    """
+    in_pad = torch.isneginf(sp)
+    sc = torch.clamp(sp, 0.0, 1.0)  # clamp(−inf) → 0; NaN stays NaN
+    d0 = torch.where(in_pad, D_IDENT, nu * (1.0 - sc))
+    i = torch.where(in_pad, I_IDENT, ip)
+    s = torch.where(in_pad, S_IDENT, sc)
+    return d0, i, s
+
+
+def _scheduled_gdt(dp, ip, sp, plan: ChainPlan, lamb: float,
+                   max_chunks: int):
+    """gdt's step functions for :func:`_drive_scheduler` (the wavefront
+    schedule).
+
+    ``dp``/``ip``/``sp`` are stacked (TOTAL_H, W_pad) planes from
+    :func:`gdt_stage`.  Only the distance plane evolves; the image and
+    seed planes are chunk-invariant, so their compact-workspace patches
+    go through the driver's ``gather_const`` cache as one pair.  Returns
+    (d, img_converged, state).
+    """
+    geo = dict(lamb=lamb, fuse_k=plan.fuse_k, band_h=plan.band_h)
+
+    def full_step(d, active, _base):
+        if plan.n_tiles > 1:
+            return gdt_tile_step(d, ip, sp, tile_w=plan.tile_w,
+                                 active=active,
+                                 bands_per_image=plan.n_bands, **geo)
+        return gdt_chain_step(d, ip, sp, active=active,
+                              bands_per_image=plan.n_bands, **geo)
+
+    def gather_const(idx):
+        return (_gather_patches(ip, idx, plan, I_IDENT),
+                _gather_patches(sp, idx, plan, S_IDENT))
+
+    def compact_step(d, idx, valid, const, _base):
+        i_patch, s_patch = const
+        d_patch = _gather_patches(d, idx, plan, D_IDENT)
+        new_mid, ch = gdt_compact_step(d_patch, i_patch, s_patch, valid,
+                                       tile_w=_cell_tile_w(plan), **geo)
+        return (_scatter_mid(d, idx, new_mid, plan),
+                _scatter_flags(ch, idx, plan))
+
+    d, _, _, _, img_conv, state = _drive_scheduler(
+        plan, dp, dp.device, full_step=full_step, compact_step=compact_step,
+        gather_const=gather_const, max_chunks=max_chunks)
+    return d, img_conv, state
+
+
+def _shift_row(x: torch.Tensor, dx: int, fill) -> torch.Tensor:
+    """(N, W) row batch translated along W with ``fill`` at the border."""
+    if dx == 0:
+        return x
+    return shift2(x, 0, dx, fill)
+
+
+def _gdt_sweep(d3, i3, s3, lamb: float, reverse: bool):
+    """One directional raster pass over (N, H, W) planes: a loop over the
+    rows (axis 1) carrying the *updated* previous row, relaxing each row
+    against its three upper (``reverse=False``) or lower
+    (``reverse=True``) neighbours.  The left/right passes run this on the
+    H↔W transposed planes; across the four directions the candidate sets
+    cover the 8-neighbourhood, so rounds iterated to a fixpoint land on
+    the same bits as the wavefront scheduler.  Each operation rounds on
+    its own, as in :func:`~repro_torch.kernels.gdt_chain.gdt_weights`."""
+    n, h, w = d3.shape
+    out = torch.empty_like(d3)
+    prev_d = torch.full((n, w), D_IDENT, dtype=d3.dtype, device=d3.device)
+    prev_i = torch.zeros((n, w), dtype=d3.dtype, device=d3.device)
+    for r in (range(h - 1, -1, -1) if reverse else range(h)):
+        d_row, i_row = d3[:, r], i3[:, r]
+        best = d_row
+        for dx in (-1, 0, 1):
+            dq = _shift_row(prev_d, dx, D_IDENT)
+            if lamb == 0.0:
+                cand = dq + 1.0
+            else:
+                iq = _shift_row(prev_i, dx, I_IDENT)
+                cand = dq + (1.0 + torch.abs(lamb * torch.abs(i_row - iq)))
+            best = torch.minimum(best, cand)
+        prev_d = torch.where(s3[:, r] < 0, D_IDENT, best)
+        prev_i = i_row
+        out[:, r] = prev_d
+    return out
+
+
+def _raster_gdt(dp, ip, sp, plan: ChainPlan, lamb: float, max_rounds: int):
+    """The raster-scan schedule: FastGeodis-style down/up/left/right
+    sweeps iterated to a fixpoint (``plan.schedule == "raster"``), in
+    plain PyTorch on the tensors' device.
+
+    Runs on the *unstacked* (N, H_pad, W_pad) view: the sweeps walk rows
+    and columns of each image separately, so batched images never leak
+    into each other.  One host read of the per-image ``changed`` vector
+    per round.  Returns ``(d, rounds, img_converged)`` with ``d``
+    re-stacked; an image unchanged by the last full round is at its
+    fixpoint, so the convergence vector is exact even when the round
+    budget truncates the others.
+    """
+    n = plan.n_images
+    d3, i3, s3 = (_unstacked(x, n) for x in (dp, ip, sp))
+    i3t, s3t = i3.transpose(1, 2), s3.transpose(1, 2)
+    changed = np.ones((n,), bool)
+    rounds = 0
+    while changed.any() and rounds < max_rounds:
+        new = _gdt_sweep(d3, i3, s3, lamb, reverse=False)
+        new = _gdt_sweep(new, i3, s3, lamb, reverse=True)
+        new_t = _gdt_sweep(new.transpose(1, 2), i3t, s3t, lamb, reverse=False)
+        new_t = _gdt_sweep(new_t, i3t, s3t, lamb, reverse=True)
+        new = new_t.transpose(1, 2).contiguous()
+        changed = M.not_equal(new, d3).flatten(1).any(1).cpu().numpy()
+        d3 = new
+        rounds += 1
+    return _stacked(d3), rounds, torch.from_numpy(~changed)
+
+
+def gdt_fixpoint(img: torch.Tensor, seeds: torch.Tensor, lamb: float,
+                 nu: float, max_iters: int) -> torch.Tensor:
+    """The ``"torch"`` engine's gdt: Jacobi iteration of the relaxation
+    on unpadded (..., H, W) tensors to its fixpoint (the reference's
+    ``gdt_fixpoint_xla``), bit-exact with ``repro_torch.gdt.reference``.
+    One host read per iteration decides whether to go on."""
+    sc = torch.clamp(seeds.to(img.dtype), 0.0, 1.0)
+    d = nu * (1.0 - sc)
+    weights = gdt_weights(img, lamb)
+    for _ in range(max_iters):
+        cand = relax(d, weights)
+        if not bool(M.not_equal(cand, d).any()):
+            break
+        d = cand
+    return d
+
+
+def gdt(image, seeds, lamb: float = 1.0, nu: float = 1e6,
+        backend: str | None = None, max_chunks: int | None = None,
+        plan: ChainPlan | None = None, device=None) -> torch.Tensor:
+    """Generalised geodesic distance transform (see ``E.gdt``), through
+    ``repro_torch.api.compile`` on ``device`` (``None`` is the GPU).
+
+    Accepts (H, W) or (N, H, W) image/seed stacks of one float dtype;
+    pass a ``plan`` with ``schedule="raster"`` for the sweep schedule.
+    """
+    image, seeds = torch.as_tensor(image), torch.as_tensor(seeds)
+    if not image.dtype.is_floating_point:
+        raise TypeError(
+            f"gdt: image must be a float dtype, got {image.dtype} (the "
+            "distance plane is a float lattice)")
+    if image.shape != seeds.shape:
+        raise ValueError(f"image shape {tuple(image.shape)} != seeds shape "
+                         f"{tuple(seeds.shape)}")
+    api = _api()
+    expr = api.E.gdt(api.E.input("image"), api.E.input("seeds"), lamb=lamb,
+                     nu=nu)
+    exe = api.compile(expr, image.shape, image.dtype, backend, plan=plan,
+                      max_chunks=max_chunks, device=device)
+    return exe(image, seeds)

@@ -134,10 +134,12 @@ def test_forced_specialization_matches_reference(specialize):
     assert np.array_equal(np.asarray(want), exe(f).numpy())
 
 
-def test_unported_segments_raise_not_implemented():
+def test_gdt_requires_a_float_dtype():
     f = TA.E.input("f")
-    with pytest.raises(NotImplementedError, match="gdt"):
-        TA.compile(TA.E.gdt(f, f), (8, 8), np.float32, device="cpu")
+    with pytest.raises(TypeError, match="float dtype"):
+        TA.compile(TA.E.gdt(f, f), (8, 8), np.uint8, device="cpu")
+    exe = TA.compile(TA.E.gdt(f, f), (8, 8), np.float32, device="cpu")
+    assert exe.stats()["launches"] == 1 and exe.program.convergent
 
 
 def test_compile_cache_and_input_checks():

@@ -12,7 +12,9 @@ import torch
 
 from repro_torch.api import E, compile, hmax_expr, qdt_l1_expr
 from repro_torch.data.images import blobs
+from repro_torch.gdt import seg_scribble_expr
 from repro_torch.kernels import erode_chain as TE
+from repro_torch.kernels import gdt_chain as TD
 from repro_torch.kernels import geodesic_chain as TG
 from repro_torch.kernels import qdt_chain as TQ
 from repro_torch.kernels.common import qdt_acc_dtype
@@ -167,3 +169,65 @@ def test_compile_qdt_cuda_engine_matches_torch_engine(cuda, expr):
     assert all(g.device.type == "cuda" and _same(g, w)
                for g, w in zip(got, want, strict=True))
     assert TQ.qdt_tile_step.launches > before
+
+
+@pytest.mark.parametrize("lamb", (0.0, 0.37))
+@pytest.mark.parametrize("dtype", (np.float32, np.float64),
+                         ids=lambda d: d.__name__)
+def test_gdt_kernels_match_plain_versions(cuda, dtype, lamb):
+    """+inf in d, NaN in i (uniform in [0, 3], where a fused
+    multiply-add would show), pad cells (s = -1) inside the image."""
+    rng = np.random.default_rng(7)
+
+    def planes(shape):
+        d = rng.random(shape) * 20
+        d[rng.random(shape) < 0.05] = np.inf
+        i = rng.random(shape) * 3
+        i[rng.random(shape) < 0.01] = np.nan
+        s = rng.random(shape)
+        s[rng.random(shape) < 0.05] = -1.0
+        return [torch.from_numpy(x.astype(dtype)).to(cuda) for x in (d, i, s)]
+
+    def grid(shape):
+        return torch.from_numpy(rng.integers(0, 2, shape,
+                                             dtype=np.int32)).to(cuda)
+
+    d, i, s = planes((H, W))
+    geo = dict(lamb=lamb, fuse_k=K, band_h=BAND, bands_per_image=BPI)
+    act = grid((H // BAND, 1))
+    for got, want in zip(
+            TD.gdt_chain_step(d, i, s, active=act, **geo),
+            TD.gdt_chain_step_plain(d, i, s, active=act, **geo)):
+        assert _same(got, want)
+    act = grid((H // BAND, W // TILE))
+    for got, want in zip(
+            TD.gdt_tile_step(d, i, s, tile_w=TILE, active=act, **geo),
+            TD.gdt_tile_step_plain(d, i, s, tile_w=TILE, active=act, **geo)):
+        assert _same(got, want)
+    cap = 3
+    win = planes((cap * (BAND + 2 * K), TILE + 2 * K))
+    valid = torch.tensor([[1], [0], [1]], dtype=torch.int32, device=cuda)
+    cargs = dict(lamb=lamb, fuse_k=K, band_h=BAND, tile_w=TILE)
+    for got, want in zip(
+            TD.gdt_compact_step(*win, valid, **cargs),
+            TD.gdt_compact_step_plain(*win, valid, **cargs)):
+        assert _same(got, want)
+
+
+@pytest.mark.parametrize("expr", ("gdt", "seg_scribble"))
+def test_compile_gdt_cuda_engine_matches_torch_engine(cuda, expr):
+    f = np.stack([blobs(200, 300, np.float32, seed=s) for s in range(3)])
+    rng = np.random.default_rng(8)
+    marks = np.zeros(f.shape, np.float32)
+    marks[rng.random(f.shape) < 2e-4] = 1.0
+    if expr == "seg_scribble":
+        marks[:, 0, :] = marks[:, -1, :] = 2.0
+        e = seg_scribble_expr()
+    else:
+        e = E.gdt(E.input("image"), E.input("seeds"))
+    x, m = torch.from_numpy(f).to(cuda), torch.from_numpy(marks).to(cuda)
+    before = TD.gdt_tile_step.launches
+    got = compile(e, x.shape, x.dtype)(x, m)
+    want = compile(e, x.shape, x.dtype, "torch")(x, m)
+    assert got.device.type == "cuda" and _same(got, want)
+    assert TD.gdt_tile_step.launches > before

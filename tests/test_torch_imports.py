@@ -54,6 +54,8 @@ def _imported_roots(path: pathlib.Path):
 def test_no_jax_or_reference_import_in_port_sources():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 15
+    assert {PORT / "gdt" / "__init__.py", PORT / "gdt" / "reference.py",
+            PORT / "kernels" / "gdt_chain.py"} <= set(files)
     offenders = [(f.relative_to(REPO).as_posix(), root) for f in files
                  for root in _imported_roots(f)
                  if root in ("jax", "jaxlib", "repro")]
@@ -63,6 +65,7 @@ def test_no_jax_or_reference_import_in_port_sources():
 def test_default_device_is_the_gpu_and_raises_without_one():
     if torch.cuda.is_available():
         pytest.skip("this machine has a GPU; the default runs there")
+    from repro_torch import gdt
     from repro_torch.api import E, compile
     from repro_torch.core import operators
     from repro_torch.kernels import ops
@@ -88,6 +91,8 @@ def test_default_device_is_the_gpu_and_raises_without_one():
         "qdt_planes": lambda **kw: ops.qdt_planes(x, **kw)[0],
         "qdt": lambda **kw: operators.qdt(x, **kw),
         "qdt-max_s": lambda **kw: operators.qdt(x, 3, **kw),
+        "ops.gdt": lambda **kw: ops.gdt(x.float(), x.float(), **kw),
+        "gdt.gdt": lambda **kw: gdt.gdt(x.float(), x.float(), **kw),
     }
     for name, call in engine.items():
         with pytest.raises(RuntimeError, match="no CUDA device"):
