@@ -11,7 +11,9 @@ Phases, each of which makes the script exit non-zero when it fails:
    on the card — the four morphology kernels over uint8/uint16/float32
    and both ops, the three QDT kernels over uint8/uint16/int32 (with its
    extremes)/float32/float64, the three gdt kernels over float32/float64
-   and λ ∈ {0, 1, 0.37} (with +inf distances and pad cells) — at ragged
+   and λ ∈ {0, 1, 0.37} (with +inf distances and pad cells, and the
+   block shape's edges: K = 1, odd K, bands off the 16-row strips,
+   cells narrower than a warp, +inf/NaN on window borders) — at ragged
    sub-tiles, N=3 stacks, activity grids with zeros, ragged per-cell QDT
    offsets, sentinel slots, NaN inputs, and at the main path's shapes;
 3. main path, one run per slice of the port, each with the launch
@@ -275,10 +277,13 @@ def check_qdt_kernels(checks: Checks) -> None:
     sync()
 
 
-def gdt_planes(shape, dtype, gen):
+def gdt_planes(shape, dtype, gen, nan=0.01, frame=None):
     """gdt check planes: d in [0, 20) with +inf, i uniform in [0, 3]
     (where a contracted weight would round differently) with NaN, and s
-    in [0, 1) with pad cells (-1) inside the image."""
+    in [0, 1) with pad cells (-1) inside the image.  With ``frame`` (a
+    row period: an image's or a patch's height), d is +inf and i NaN on
+    the first and last row of every period and the first and last
+    column, where a window's border lies."""
     def u(scale=1.0):
         return torch.rand(shape, generator=gen, device=DEVICE,
                           dtype=dtype) * scale
@@ -288,9 +293,23 @@ def gdt_planes(shape, dtype, gen):
 
     d, i, s = u(20.0), u(3.0), u()
     d[where(0.05)] = float("inf")
-    i[where(0.01)] = float("nan")
+    i[where(nan)] = float("nan")
     s[where(0.05)] = -1.0
+    if frame is not None:
+        rows = torch.arange(shape[0], device=DEVICE) % frame
+        edge = (rows == 0) | (rows == frame - 1)
+        for x, v in ((d, float("inf")), (i, float("nan"))):
+            x[edge] = v
+            x[:, 0] = x[:, -1] = v
     return d, i, s
+
+
+#: gdt grids where the thread-strip body can go wrong, beside the grids
+#: of the other kernels: K = 1, an odd K with bands that are not a
+#: multiple of a strip's 16 rows, cells narrower than a warp's 32
+#: columns, and K = 32, beyond the register-weight instance.
+GDT_EDGE_GRIDS = [(1, 2, 5, 40, 8, 1), (1, 3, 21, 84, 28, 7),
+                  (2, 2, 48, 96, 32, 16), (1, 2, 64, 192, 64, 32)]
 
 
 def check_gdt_kernels(checks: Checks) -> None:
@@ -300,13 +319,24 @@ def check_gdt_kernels(checks: Checks) -> None:
     gen.manual_seed(2)
     grids = [(3, 2, 160, 480, 160, 16), (3, 3, 32, 256, 128, 8),
              (1, 2, 64, 384, 128, 32)]
+    # the edge grids frame their planes, with NaN in i only on the frames
+    # (elsewhere it would turn most of the output NaN within K steps)
+    cases = ([(g, False) for g in grids]
+             + [(g, True) for g in GDT_EDGE_GRIDS])
     for dtype in GD.DTYPES:
         for lamb in (0.0, 1.0, 0.37):
-            for n, bpi, bh, w, tw, k in grids:
+            for (n, bpi, bh, w, tw, k), framed in cases:
                 h = n * bpi * bh
                 what = (f"{dtype} lamb={lamb} h={h} w={w} band={bh} "
-                        f"tile={tw} k={k}")
-                d, i, s = gdt_planes((h, w), dtype, gen)
+                        f"tile={tw} k={k}{' framed' if framed else ''}")
+
+                def planes(shape, period):
+                    if framed:
+                        return gdt_planes(shape, dtype, gen, nan=0.0,
+                                          frame=period)
+                    return gdt_planes(shape, dtype, gen)
+
+                d, i, s = planes((h, w), bpi * bh)
                 args = dict(lamb=lamb, fuse_k=k, band_h=bh,
                             bands_per_image=bpi)
                 for name, grid, extra in (
@@ -321,8 +351,8 @@ def check_gdt_kernels(checks: Checks) -> None:
                         name, kern(d, i, s, active=act, **args, **extra),
                         plain(d, i, s, active=act, **args, **extra), what)
                 cap = 5
-                win = gdt_planes((cap * (bh + 2 * k), tw + 2 * k), dtype,
-                                 gen)
+                ph = bh + 2 * k
+                win = planes((cap * ph, tw + 2 * k), ph)
                 valid = torch.tensor([[1], [0], [1], [1], [0]],
                                      dtype=torch.int32, device=DEVICE)
                 cargs = dict(lamb=lamb, fuse_k=k, band_h=bh, tile_w=tw)

@@ -171,43 +171,64 @@ def test_compile_qdt_cuda_engine_matches_torch_engine(cuda, expr):
     assert TQ.qdt_tile_step.launches > before
 
 
+# (rows, width, band_h, bands_per_image, tile_w, K, framed): the grid of
+# the other kernels, then where the gdt body's thread strips can go
+# wrong — K = 1, an odd K with bands off a strip's 16 rows, cells
+# narrower than a warp's 32 columns, K = 32 beyond the register-weight
+# instance — with +inf in d and NaN in i on the window borders
+GDT_GRIDS = [(H, W, BAND, BPI, TILE, K, False), (10, 40, 5, 2, 8, 1, True),
+             (63, 84, 21, 3, 28, 7, True), (192, 96, 48, 2, 32, 16, True),
+             (128, 192, 64, 2, 64, 32, True)]
+
+
+@pytest.mark.parametrize("grid", GDT_GRIDS,
+                         ids=lambda g: "h{}-w{}-band{}-tile{}-k{}".format(
+                             g[0], g[1], g[2], g[4], g[5]))
 @pytest.mark.parametrize("lamb", (0.0, 0.37))
 @pytest.mark.parametrize("dtype", (np.float32, np.float64),
                          ids=lambda d: d.__name__)
-def test_gdt_kernels_match_plain_versions(cuda, dtype, lamb):
+def test_gdt_kernels_match_plain_versions(cuda, dtype, lamb, grid):
     """+inf in d, NaN in i (uniform in [0, 3], where a fused
-    multiply-add would show), pad cells (s = -1) inside the image."""
+    multiply-add would show), pad cells (s = -1) inside the image; on a
+    framed grid NaN in i only on the frame of every image and patch."""
+    h, w, band, bpi, tile, k, framed = grid
     rng = np.random.default_rng(7)
 
-    def planes(shape):
+    def planes(shape, period):
         d = rng.random(shape) * 20
         d[rng.random(shape) < 0.05] = np.inf
         i = rng.random(shape) * 3
-        i[rng.random(shape) < 0.01] = np.nan
+        i[rng.random(shape) < (0.0 if framed else 0.01)] = np.nan
         s = rng.random(shape)
         s[rng.random(shape) < 0.05] = -1.0
+        if framed:
+            rows = np.arange(shape[0]) % period
+            for x, v in ((d, np.inf), (i, np.nan)):
+                x[(rows == 0) | (rows == period - 1)] = v
+                x[:, [0, -1]] = v
         return [torch.from_numpy(x.astype(dtype)).to(cuda) for x in (d, i, s)]
 
-    def grid(shape):
+    def grid_of(shape):
         return torch.from_numpy(rng.integers(0, 2, shape,
                                              dtype=np.int32)).to(cuda)
 
-    d, i, s = planes((H, W))
-    geo = dict(lamb=lamb, fuse_k=K, band_h=BAND, bands_per_image=BPI)
-    act = grid((H // BAND, 1))
+    d, i, s = planes((h, w), bpi * band)
+    geo = dict(lamb=lamb, fuse_k=k, band_h=band, bands_per_image=bpi)
+    act = grid_of((h // band, 1))
     for got, want in zip(
             TD.gdt_chain_step(d, i, s, active=act, **geo),
             TD.gdt_chain_step_plain(d, i, s, active=act, **geo)):
         assert _same(got, want)
-    act = grid((H // BAND, W // TILE))
+    act = grid_of((h // band, w // tile))
     for got, want in zip(
-            TD.gdt_tile_step(d, i, s, tile_w=TILE, active=act, **geo),
-            TD.gdt_tile_step_plain(d, i, s, tile_w=TILE, active=act, **geo)):
+            TD.gdt_tile_step(d, i, s, tile_w=tile, active=act, **geo),
+            TD.gdt_tile_step_plain(d, i, s, tile_w=tile, active=act, **geo)):
         assert _same(got, want)
     cap = 3
-    win = planes((cap * (BAND + 2 * K), TILE + 2 * K))
+    ph = band + 2 * k
+    win = planes((cap * ph, tile + 2 * k), ph)
     valid = torch.tensor([[1], [0], [1]], dtype=torch.int32, device=cuda)
-    cargs = dict(lamb=lamb, fuse_k=K, band_h=BAND, tile_w=TILE)
+    cargs = dict(lamb=lamb, fuse_k=k, band_h=band, tile_w=tile)
     for got, want in zip(
             TD.gdt_compact_step(*win, valid, **cargs),
             TD.gdt_compact_step_plain(*win, valid, **cargs)):

@@ -189,6 +189,27 @@ def test_wrappers_run_the_plain_version_on_cpu_tensors():
         TG.gdt_tile_step(d, i, s, tile_w=96, **args)
 
 
+@pytest.mark.parametrize("lamb", (0.37, 1.0))
+@pytest.mark.parametrize("dtype", (np.float32, np.float64),
+                         ids=lambda d: d.__name__)
+def test_gdt_weights_are_symmetric(dtype, lamb):
+    """w(p, q) = w(q, p) exactly (NaN where NaN), with NaN, ±inf and
+    −0.0 in i: the CUDA kernel computes a weight once for both pixels it
+    joins.
+    The plane of offset δ holds w(p, p − δ); shifted by δ, the plane of
+    −δ holds w(p − δ, p), which must be the same away from the border."""
+    rng = np.random.default_rng(41)
+    i = rng.random((24, 40)) * 3
+    for v, frac in ((np.nan, 0.05), (np.inf, 0.05), (-np.inf, 0.05),
+                    (-0.0, 0.05), (0.0, 0.05)):
+        i[rng.random(i.shape) < frac] = v
+    planes = dict(zip(TG.OFFSETS, TG.gdt_weights(_t(i.astype(dtype)), lamb)))
+    for (dy, dx), plane in planes.items():
+        mirrored = TG.shift2(planes[(-dy, -dx)], dy, dx, np.nan)
+        assert np.array_equal(plane[1:-1, 1:-1].numpy(),
+                              mirrored[1:-1, 1:-1].numpy(), equal_nan=True)
+
+
 # ---------------------------------------------------------------------------
 # the scheduler under the reference's plans
 # ---------------------------------------------------------------------------
