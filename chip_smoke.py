@@ -10,12 +10,15 @@ Phases, each of which makes the script exit non-zero when it fails:
 2. kernels: each of the ten kernels against its plain PyTorch version
    on the card — the four morphology kernels over uint8/uint16/float32
    and both ops, the three QDT kernels over uint8/uint16/int32 (with its
-   extremes)/float32/float64, the three gdt kernels over float32/float64
-   and λ ∈ {0, 1, 0.37} (with +inf distances and pad cells, and the
-   block shape's edges: K = 1, odd K, bands off the 16-row strips,
-   cells narrower than a warp, +inf/NaN on window borders) — at ragged
-   sub-tiles, N=3 stacks, activity grids with zeros, ragged per-cell QDT
-   offsets, sentinel slots, NaN inputs, and at the main path's shapes;
+   extremes)/float32/float64 (and the thread-strip bodies' edges: K = 1,
+   odd K, widths and window origins off the uint8 body's 4-pixel words,
+   narrow cells, K = 32, r over the int32 range), the three gdt kernels
+   over float32/float64 and λ ∈ {0, 1, 0.37} (with +inf distances and
+   pad cells, and the block shape's edges: K = 1, odd K, bands off the
+   16-row strips, cells narrower than a warp, +inf/NaN on window
+   borders) — at ragged sub-tiles, N=3 stacks, activity grids with
+   zeros, ragged per-cell QDT offsets, sentinel slots, NaN inputs, and
+   at the main path's shapes;
 3. main path, one run per slice of the port, each with the launch
    counts set to 0 just before it and read just after; every kernel of
    the slice must have been launched in its run, and every result must
@@ -225,6 +228,18 @@ def qdt_image(shape, dtype, gen):
     return x
 
 
+#: QDT grids where the thread-strip bodies can go wrong, beside the grids
+#: of the other kernels: K = 1, an odd K with bands off a strip's 16
+#: rows, tiles and compact patches whose width and window origin are not
+#: multiples of 4 (the uint8 body's packed words), cells narrower than a
+#: warp, and K = 32 at the main path's 64x128 cell.  Their r planes span
+#: the int32 range, with -1, 256 and the extremes (the uint8 body clamps
+#: r to [-1, 255]).
+QDT_EDGE_GRIDS = [(1, 2, 5, 40, 8, 1), (1, 3, 21, 84, 28, 7),
+                  (1, 2, 14, 42, 14, 7), (2, 2, 48, 96, 32, 16),
+                  (1, 2, 64, 256, 128, 32)]
+
+
 def check_qdt_kernels(checks: Checks) -> None:
     from repro_torch.kernels import qdt_chain as QC
     from repro_torch.kernels.common import qdt_acc_dtype
@@ -233,26 +248,42 @@ def check_qdt_kernels(checks: Checks) -> None:
     gen.manual_seed(1)
     grids = [(3, 2, 160, 480, 160, 16), (3, 3, 32, 256, 128, 8),
              (1, 2, 64, 384, 128, 32)]
+    cases = ([(g, False) for g in grids]
+             + [(g, True) for g in QDT_EDGE_GRIDS])
 
-    def ints(shape, hi):
-        return torch.randint(0, hi, shape, generator=gen, device=DEVICE,
+    def ints(shape, hi, lo=0):
+        return torch.randint(lo, hi, shape, generator=gen, device=DEVICE,
                              dtype=torch.int32)
 
     for dtype in (torch.uint8, torch.uint16, torch.int32, torch.float32,
                   torch.float64):
         acc = qdt_acc_dtype(dtype)
 
-        def planes(shape):
-            """Mid-flight r (NaN in float ones) and d planes."""
-            r = (rand(shape, acc, gen, 0.01) if acc.is_floating_point
-                 else ints(shape, 200))
+        def planes(shape, wide):
+            """Mid-flight r (NaN in float ones) and d planes; ``wide``
+            draws r over the int32 range, half of it in [-2, 258), with
+            the extremes, -1 and 256 in place."""
+            if not wide:
+                r = (rand(shape, acc, gen, 0.01) if acc.is_floating_point
+                     else ints(shape, 200))
+                return r, ints(shape, 50)
+            r = torch.randint(-2**31, 2**31, shape, generator=gen,
+                              device=DEVICE, dtype=torch.int64)
+            near = torch.rand(shape, generator=gen, device=DEVICE) < 0.5
+            r = torch.where(near, ints(shape, 258, -2).long(), r)
+            r.view(-1)[:4] = torch.tensor([-2**31, 2**31 - 1, -1, 256])
+            r = r.to(acc)
+            if acc.is_floating_point:
+                r[torch.rand(shape, generator=gen, device=DEVICE)
+                  < 0.01] = float("nan")
             return r, ints(shape, 50)
 
-        for n, bpi, bh, w, tw, k in grids:
+        for (n, bpi, bh, w, tw, k), wide in cases:
             h = n * bpi * bh
-            what = f"{dtype} h={h} w={w} band={bh} tile={tw} k={k}"
+            what = (f"{dtype} h={h} w={w} band={bh} tile={tw} k={k}"
+                    f"{' wide r' if wide else ''}")
             f = qdt_image((h, w), dtype, gen)
-            r, d = planes((h, w))
+            r, d = planes((h, w), wide)
             args = dict(fuse_k=k, band_h=bh, bands_per_image=bpi)
             for name, grid, extra in (
                     ("qdt_chain_step", (h // bh, 1), {}),
@@ -264,7 +295,7 @@ def check_qdt_kernels(checks: Checks) -> None:
                     plain(f, r, d, base, active=act, **args, **extra), what)
             cap = 5
             fp = qdt_image((cap * (bh + 2 * k), tw + 2 * k), dtype, gen)
-            rm, dm = planes((cap * bh, tw))
+            rm, dm = planes((cap * bh, tw), wide)
             valid = torch.tensor([[1], [0], [1], [1], [0]],
                                  dtype=torch.int32, device=DEVICE)
             base = ints((cap, 1), 500)
@@ -578,7 +609,8 @@ TRACED = ("erode1500/uint8", "hmax40/uint8", "reconstruct-rows/float32",
           "qdt/uint8", "gdt/float32")
 
 #: Name parts of the port's own kernels in a trace.
-PORT_KERNELS = ("fused_kernel", "qdt_kernel", "gdt_kernel")
+PORT_KERNELS = ("fused_kernel", "qdt_pixel_kernel", "qdt_u8_kernel",
+                "gdt_kernel")
 
 
 def trace_main_path(rows, card: str) -> list:

@@ -41,9 +41,23 @@ def _run(expr_builder, f: torch.Tensor, backend, device, *builder_args):
                           device=device)(f)
 
 
-def _scalar(h, dtype: torch.dtype):
-    """``h`` cast to ``dtype`` the way ``jnp.asarray(h, dtype)`` does."""
-    return np.asarray(h, numpy_dtype(dtype)).item()
+#: Parameter types the expression builders embed as graph literals (the
+#: reference's ``_SCALAR``); a 0-d tensor is read as one too.  Anything
+#: else (a per-image array of thresholds) broadcasts against the image.
+_SCALAR = (int, float, bool, np.integer, np.floating)
+
+
+def _is_scalar(h) -> bool:
+    return isinstance(h, _SCALAR) or (isinstance(h, torch.Tensor)
+                                      and h.dim() == 0)
+
+
+def _as(h, dtype: torch.dtype, device) -> torch.Tensor:
+    """A scalar, tensor or array ``h`` cast to ``dtype`` on ``device``, as
+    ``jnp.asarray(h, dtype)`` casts it."""
+    if not isinstance(h, torch.Tensor):
+        h = torch.as_tensor(np.asarray(h).astype(numpy_dtype(dtype)))
+    return h.to(device=device, dtype=dtype)
 
 
 def _from_wide(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -59,21 +73,21 @@ def _from_wide(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def sat_sub(f: torch.Tensor, h) -> torch.Tensor:
-    """f - h clamped to the dtype's range (needed for unsigned images)."""
-    hv = _scalar(h, f.dtype)
+    """f - h clamped to the dtype's range (needed for unsigned images).
+    ``h`` is a scalar or a tensor/array that broadcasts against ``f``."""
+    hv = _as(h, f.dtype, f.device)
     if f.dtype in (torch.uint8, torch.uint16):
-        w = M.wide(f)
+        w, hv = M.wide(f), M.wide(hv)
         return M.narrow(torch.where(w > hv, w - hv, 0), f.dtype)
-    return f - torch.tensor(hv, dtype=f.dtype, device=f.device)
+    return f - hv
 
 
 def sat_add(f: torch.Tensor, h) -> torch.Tensor:
-    """f + h clamped to the dtype's range."""
+    """f + h clamped to the dtype's range; ``h`` as in :func:`sat_sub`."""
     if f.dtype.is_floating_point:
-        return f + torch.tensor(_scalar(h, f.dtype), dtype=f.dtype,
-                                device=f.device)
+        return f + _as(h, f.dtype, f.device)
     info = torch.iinfo(f.dtype)
-    wide = M.wide(f).to(torch.int64) + int(np.asarray(h, np.int64))
+    wide = M.wide(f).to(torch.int64) + _as(h, torch.int64, f.device)
     return _from_wide(wide.clamp(info.min, info.max), f.dtype)
 
 
@@ -115,15 +129,49 @@ def raobj_marker(f: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _rec_with_marker(marker: torch.Tensor, mask: torch.Tensor, op: str,
+                     backend, device) -> torch.Tensor:
+    """Reconstruction on a precomputed marker, through compile; leading
+    dimensions beyond one stack fold into it and back."""
+    api = _api()
+    expr = api.E.reconstruct(api.E.input("marker"), api.E.input("mask"),
+                             op=op)
+    shape = marker.shape
+    if marker.dim() > 3:
+        n = int(np.prod(shape[:-2]))
+        marker = marker.reshape(n, *shape[-2:])
+        mask = mask.reshape(n, *shape[-2:])
+    exe = api.compile(expr, marker.shape, marker.dtype, backend,
+                      device=device)
+    return exe(marker=marker, mask=mask).reshape(shape)
+
+
+def _hmax_marker(f, h, device):
+    """f on the run's device and the HMAX marker f - h of a non-scalar h."""
+    f = torch.as_tensor(f, device=resolve_device(device))
+    return f, sat_sub(f, h)
+
+
 def hmax(f: torch.Tensor, h, backend: str | None = None,
          device=None) -> torch.Tensor:
-    """HMAX_h(f) = δ_rec^f(f - h): suppress maxima of contrast < h."""
+    """HMAX_h(f) = δ_rec^f(f - h): suppress maxima of contrast < h.  A
+    non-scalar ``h`` (per image, broadcast against ``f``) cannot embed
+    in the graph: its marker is made first and reconstructed on the
+    requested engine."""
+    if not _is_scalar(h):
+        f, marker = _hmax_marker(f, h, device)
+        return _rec_with_marker(marker, f, "dilate", backend, device)
     return _run(_api().hmax_expr, f, backend, device, h)
 
 
 def dome(f: torch.Tensor, h, backend: str | None = None,
          device=None) -> torch.Tensor:
-    """DOME_h(f) = f - HMAX_h(f): extract the suppressed maxima."""
+    """DOME_h(f) = f - HMAX_h(f): extract the suppressed maxima (``h``
+    as in :func:`hmax`)."""
+    if not _is_scalar(h):
+        f, marker = _hmax_marker(f, h, device)
+        return sub(f, _rec_with_marker(marker, f, "dilate", backend,
+                                       device))
     return _run(_api().dome_expr, f, backend, device, h)
 
 

@@ -17,45 +17,88 @@
 // per compact slot), so every image of a ragged-converged stack keeps
 // its own distance index.
 //
-// What a block does.  As in morph_chain.cu (window, pinning and sub-tile
-// choice from morph_common.cuh), a block takes a TB x TW sub-tile of one
-// cell and holds its (TB+2K) x (TW+2K) f window in two shared-memory
-// planes, pinned to the erosion identity outside the cell's image and
-// the array (patches arrive pre-pinned).  r and d belong to the TB x TW
-// centre only: the block reads them from device memory once, keeps them
-// in shared memory behind the f planes for all K steps, and writes them
-// once.  The computed region shrinks by one pixel per side each step and
-// always holds the centre exactly, so a centre pixel's value before the
-// step (the old f plane) and after it (the vertical pass's result) are
-// both at hand where the vertical pass writes it: that pass forms the
-// residual and makes the masked store.  An inactive cell or invalid slot
-// copies f, r and d through and leaves its flag at 0; the changed flag
-// is "any centre f pixel moved", OR-reduced with __syncthreads_or.
+// What a block does.  A block takes a TB x TW sub-tile of one cell
+// (where its (TB+2K) x (TW+2K) window lies: morph_common.cuh's locate)
+// and is ncol warps across the window by nstrip strips down it.  Each
+// thread owns the same pixels for all K steps: kRows = 16 consecutive
+// rows of one window column (qdt_pixel_kernel, every dtype) or, for
+// uint8 with K < 128, of four adjacent columns (qdt_u8_kernel).  It reads
+// its f pixels from device memory once, pinned to the erosion identity
+// outside the window, the cell's image and the array (compact patches
+// arrive pinned), and keeps them in registers; for its centre pixels it
+// also keeps r and the step t of the last update there (0: none) in
+// registers.  Device memory is read in loops that store nothing (the
+// compiler cannot tell out or shared memory from f, r and d, so a store
+// of a loaded value would make every later load wait for it), and the
+// write-back loads the old centre (for the flag) and d_in (where t = 0)
+// before it stores: d_out = t ? base + t : d_in.
+//
+// A step stores the thread's pixels into a shared-memory plane (ping-pong,
+// one barrier a step) and reads back its left and right neighbours; the
+// rows just above and below its strip come from the neighbouring strips
+// through the plane too.  eps1 is separable: a row min of left, own and
+// right, then a column min over three row mins, all in registers.  Every
+// step computes the whole block, with no guard: a pixel t - 1 or fewer
+// from the block's edge may be wrong after step t (the one-pixel ring
+// beyond the block is never written), which after K steps reaches no
+// further than K - 1 from the window's edge, so the centre is exact.
+// The residual and the masked store happen in registers.  float32 takes
+// its min from PTX min.NaN (the canonical NaN, as jnp.minimum propagates
+// NaN; the checks compare NaN positions), float64 and the integers from
+// morph::pick.
+//
+// uint8 packs: a thread holds its four columns of a row as two words of
+// 16-bit lanes (p0, p1) and (p2, p3), takes the row min from the
+// neighbours' words with __byte_perm and PTX min.u16x2 (Hopper's native
+// 16-bit SIMD min), and keeps r and t together as one 16-bit key a pixel,
+// key = (r + 1) * 128 + 127 - t: the masked store "res > r, then r = res
+// and t = step" is key = max(key, (res + 1) * 128 + 127 - step), since a
+// later step has a smaller t and a tie keeps the older key.  That needs
+// r in [-1, 255]: a uint8 residual lies in [0, 255], so r_in clamped to
+// [-1, 255] gives every res > r test the outcome it has with r_in, and the
+// write-back takes r_out = t ? key / 128 - 1 : r_in.  The residual is
+// the plain 32-bit difference of the words (eps1 <= own, so no lane
+// borrows).  The plane holds one byte a pixel and a warp spans 128
+// columns (TW = 128 ncol - 2K, TB = 16 nstrip - 2K): at K = 32 a 64x128
+// cell is two 8-warp blocks of 64x64 sub-tiles (128x128 windows), where
+// one pixel a thread would need 16 blocks of 15 warps.
 //
 // Residuals are computed as the reference computes them: (int32)a -
 // (int32)b for uint8/uint16; for int32 images a wrapping subtraction
 // (through uint32_t, since signed overflow is undefined in C++); float32
 // a - b; float64 images (float)a - (float)b, each cast before the
 // subtraction.  A NaN residual never compares greater, so it stores
-// nothing; eps1 propagates NaN through morph::pick.  Built without
-// fast-math.
+// nothing; eps1 propagates NaN.  Built without fast-math.  An inactive
+// cell or invalid slot copies f, r and d through and leaves its flag at
+// 0; the changed flag is "any centre f pixel moved" (NaN counts as
+// moved), OR-reduced with __syncthreads_or.
 //
 // Bound on one H100 SXM (3.35 TB/s, 67e12/s fp32 non-tensor rate for
 // every dtype).  Per launch the function reads f, r and d once and
 // writes each once; its work is 4 min + 1 subtract + 1 compare per pixel
 // per step.  At paper scale, 8 x 1024 x 1024, one all-active tile
-// launch: uint8, K=32: 144 MB -> 43 us against 1.6e9 ops -> 24 us, bound
-// by bytes; float32, K=16: 192 MB -> 57 us.  chip_smoke.py recomputes
-// the bounds from its run's inputs.  A first kernel: the byte-wide
-// shared-memory passes and two block barriers per step, as in
-// morph_chain.cu, keep it far above them.
+// launch: uint8, K=32: 151 MB -> 45 us against 1.6e9 ops -> 24 us, bound
+// by bytes; float32, K=16: 201 MB -> 60 us.  chip_smoke.py recomputes
+// the bounds from its run's inputs.  What keeps the kernel above them:
+// every step computes the whole block (at K = 32, 4x the centre's
+// pixels), at 387 instructions a 16-row step of the packed kernel (~6 a
+// pixel-step), with barrier and shared-memory latency behind two 8-warp
+// blocks an SM; the load and the write-back, which spill, overlap only
+// the other block's steps.  That keeps qdt_tile_step ~9x above its bound
+// (0.42 ms on an H100 SXM at 700 W, chip_smoke.py).
+//
+// ptxas (-O3, sm_90a), registers a thread and bytes spilled: u8 128
+// (188, in the load and the write-back, not in the step loop); pixel
+// uint8 128 (0), uint16 128 (0), int32 128 (12), float 128 (4), double
+// 128 (120).
+
+#include <algorithm>
 
 #include "morph_common.cuh"
 
 namespace {
 
 using morph::Geo;
-using morph::kThreads;
 using morph::Lattice;
 using morph::pick;
 using morph::Window;
@@ -80,6 +123,31 @@ __device__ __forceinline__ float residual(double a, double b) {
   return static_cast<float>(a) - static_cast<float>(b);
 }
 
+// The erosion's min, propagating NaN as jnp.minimum does: one PTX
+// min.NaN for float32 (its NaN is the canonical one), morph::pick for
+// the rest.
+template <typename T>
+__device__ __forceinline__ T emin(T a, T b) {
+  return pick<T, true>(a, b);
+}
+__device__ __forceinline__ float emin(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// Lane-wise min and max of two words of 16-bit lanes.
+__device__ __forceinline__ uint32_t min2(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm("min.u16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t max2(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm("max.u16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
 // The residual and distance planes of one launch, and the per-cell base.
 // In stack mode they have f's layout; in compact mode the centres'
 // (cap * band_h, tile_w) layout, like the f output.
@@ -91,116 +159,407 @@ struct Planes {
   const int* base;
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) qdt_kernel(Geo g, Planes p) {
-  using A = typename Acc<T>::type;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int K = g.k;
-  const int cell = blockIdx.x;
-  const Window w = morph::locate(g);
-  const int WH = w.WH, WW = w.WW, WS = w.WS;
+// Rows of the column strip that each thread owns.
+constexpr int kRows = 16;
+
+// Threads a block may have (128 registers a thread).
+constexpr int kMaxThreads = 512;
+
+// The uint8 key's step field: key = (r + 1) * kSteps + kSteps - 1 - t.
+constexpr int kSteps = 128;
+
+// An inactive cell or invalid slot: the sub-tile's centre of f, r and d
+// copied through, eight pixels a thread loaded before any is stored.
+template <typename T, typename A>
+__device__ __forceinline__ void pass_through(const Geo& g, const Window& w,
+                                             const Planes& p) {
+  constexpr int B = 8;
   const T* f = static_cast<const T*>(g.f);
   T* out = static_cast<T*>(g.out);
   const A* r_in = static_cast<const A*>(p.r_in);
   A* r_out = static_cast<A*>(p.r_out);
-  const int tid = threadIdx.x;
-
-  if (g.active != nullptr && g.active[cell] == 0) {
-    // converged cell / sentinel slot: f, r and d pass through, flag 0
-    morph::copy_centre(out, f, g, w);
-    for (int i = tid; i < w.tb * w.tw; i += kThreads) {
-      const long long at =
-          (w.orow + i / w.tw) * g.out_w + w.ocol + i % w.tw;
-      r_out[at] = r_in[at];
-      p.d_out[at] = p.d_in[at];
-    }
-    return;
-  }
-
-  const int plane = (g.tb + 2 * K) * WS;
-  T* a = reinterpret_cast<T*>(smem_raw);
-  T* b = a + plane;
-  A* rs = reinterpret_cast<A*>(smem_raw
-                               + morph::align16(2 * plane * sizeof(T)));
-  int* ds = reinterpret_cast<int*>(rs + g.tb * g.tw);
-  morph::load_window(a, f, g, w, Lattice<T>::hi());
-  for (int i = tid; i < w.tb * w.tw; i += kThreads) {
-    const long long at = (w.orow + i / w.tw) * g.out_w + w.ocol + i % w.tw;
-    rs[i] = r_in[at];
-    ds[i] = p.d_in[at];
-  }
-  const int base = p.base[cell];
-  __syncthreads();
-
-  const int tx = tid & 31, ty = tid >> 5;
-  constexpr int kRows = kThreads / 32;
-  for (int t = 1; t <= K; ++t) {
-    // horizontal pass a -> b on rows [t-1, WH-t+1), columns [t, WW-t)
-    for (int r = t - 1 + ty; r < WH - t + 1; r += kRows) {
-      const T* src = a + r * WS;
-      T* dst = b + r * WS;
-      for (int c = t + tx; c < WW - t; c += 32)
-        dst[c] = pick<T, true>(pick<T, true>(src[c - 1], src[c]),
-                               src[c + 1]);
-    }
-    __syncthreads();
-    // vertical pass b -> a on rows [t, WH-t); at a centre pixel, the
-    // residual of this step and the masked store of r and d
-    for (int r = t + ty; r < WH - t; r += kRows) {
-      const T* up = b + (r - 1) * WS;
-      const T* mid = b + r * WS;
-      const T* dn = b + (r + 1) * WS;
-      T* dst = a + r * WS;
-      const int cr = r - K;
-      const bool centre_row = cr >= 0 && cr < w.tb;
-      for (int c = t + tx; c < WW - t; c += 32) {
-        const T v = pick<T, true>(pick<T, true>(up[c], mid[c]), dn[c]);
-        const int cc = c - K;
-        if (centre_row && cc >= 0 && cc < w.tw) {
-          const A res = residual(dst[c], v);
-          const int i = cr * w.tw + cc;
-          if (res > rs[i]) {
-            rs[i] = res;
-            ds[i] = base + t;
-          }
-        }
-        dst[c] = v;
+  const int K = g.k, n = w.tb * w.tw, step = blockDim.x;
+  for (int i0 = threadIdx.x; i0 < n; i0 += B * step) {
+    T fv[B];
+    A rv[B];
+    int dv[B];
+    long long at[B];
+#pragma unroll
+    for (int k = 0; k < B; ++k) {
+      const int i = i0 + k * step;
+      if (i < n) {
+        const int r = i / w.tw, c = i % w.tw;
+        at[k] = (w.orow + r) * g.out_w + w.ocol + c;
+        fv[k] = f[(w.wr + K + r) * g.src_w + w.wc + K + c];
+        rv[k] = r_in[at[k]];
+        dv[k] = p.d_in[at[k]];
       }
     }
-    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < B; ++k) {
+      if (i0 + k * step < n) {
+        out[at[k]] = fv[k];
+        r_out[at[k]] = rv[k];
+        p.d_out[at[k]] = dv[k];
+      }
+    }
   }
-
-  int any = 0;
-  for (int i = tid; i < w.tb * w.tw; i += kThreads) {
-    const int r = i / w.tw, c = i % w.tw;
-    const T v = a[(K + r) * WS + K + c];
-    const long long at = (w.orow + r) * g.out_w + w.ocol + c;
-    out[at] = v;
-    r_out[at] = rs[i];
-    p.d_out[at] = ds[i];
-    any |= (v != f[(w.wr + K + r) * g.src_w + w.wc + K + c]);
-  }
-  any = __syncthreads_or(any);
-  if (any && tid == 0) g.changed[cell] = 1;
 }
 
+// One pixel a thread: window column (warp % ncol) * 32 + lane, rows
+// (warp / ncol) * kRows onwards.
 template <typename T>
-cudaError_t launch_typed(Geo g, const Planes& p, int n_cells,
-                         cudaStream_t stream) {
+__global__ void __launch_bounds__(kMaxThreads)
+    qdt_pixel_kernel(Geo g, Planes p, int ncol) {
   using A = typename Acc<T>::type;
-  size_t smem = 0;
-  if (g.k < 1 || g.cell_h < 1 || g.cell_w < 1 ||
-      !morph::pick_subtile(g.k, sizeof(T), 2, sizeof(A) + sizeof(int),
-                           g.cell_h, g.cell_w, &g.tb, &g.tw, &smem))
-    return cudaErrorInvalidValue;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int P = kRows;
+  const int K = g.k;
+  const int cell = blockIdx.x;
+  const Window w = morph::locate(g);
+  if (g.active != nullptr && g.active[cell] == 0) {
+    pass_through<T, A>(g, w, p);
+    return;
+  }
+  const T* f = static_cast<const T*>(g.f);
+  T* out = static_cast<T*>(g.out);
+  const A* r_in = static_cast<const A*>(p.r_in);
+  A* r_out = static_cast<A*>(p.r_out);
+
+  const int warp = threadIdx.x >> 5;
+  const int c = (warp % ncol) * 32 + (threadIdx.x & 31);
+  const int r0 = (warp / ncol) * P;
+  const long long gc = w.wc + c;
+  const bool centre_col = c >= K && c < K + w.tw;
+  const auto centre = [&](int j) {
+    return centre_col && r0 + j >= K && r0 + j < K + w.tb;
+  };
+  const auto src_at = [&](int j) { return (w.wr + r0 + j) * g.src_w + gc; };
+  const auto out_at = [&](int j) {
+    return (w.orow + r0 + j - K) * g.out_w + w.ocol + c - K;
+  };
+
+  // The strip, pinned outside the window, the cell's image and the
+  // array; r of its centre pixels.
+  T own[P];
+  A rv[P];
+  const bool col_in = c < w.WW && gc >= 0 && gc < g.src_w;
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    const long long gr = w.wr + r0 + j;
+    const bool in = col_in && r0 + j < w.WH && gr >= w.rlo && gr < w.rhi;
+    own[j] = in ? f[src_at(j)] : Lattice<T>::hi();
+    rv[j] = centre(j) ? r_in[out_at(j)] : A(0);
+  }
+  const int base = p.base[cell];
+
+  // Planes hold the block's rows and columns and a one-pixel ring that is
+  // never written (see the step loop).
+  const int S = 32 * ncol + 2;
+  const int plane = (static_cast<int>(blockDim.x) / (32 * ncol) * P + 2) * S;
+  T* a = reinterpret_cast<T*>(smem_raw);
+  T* b = a + plane;
+  const int at = (r0 + 1) * S + c + 1;  // window pixel (r0, c)
+  int tl[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) tl[j] = 0;
+
+  for (int t = 1; t <= K; ++t) {
+#pragma unroll
+    for (int j = 0; j < P; ++j) a[at + j * S] = own[j];
+    __syncthreads();
+    // row mins of rows -1 .. P (the end rows are the next strips')
+    T h[P + 2];
+#pragma unroll
+    for (int j = -1; j <= P; ++j) {
+      const T* row = a + at + j * S;
+      const T mid = (j < 0 || j == P) ? row[0] : own[j];
+      h[j + 1] = emin(emin(row[-1], mid), row[1]);
+    }
+#pragma unroll
+    for (int j = 0; j < P; j += 2) {
+      const T s = emin(h[j + 1], h[j + 2]);  // shared by rows j, j + 1
+      const T v[2] = {emin(h[j], s), emin(s, h[j + 3])};
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        if (centre(j + u)) {
+          const A res = residual(own[j + u], v[u]);
+          if (res > rv[j + u]) {
+            rv[j + u] = res;
+            tl[j + u] = t;
+          }
+        }
+        own[j + u] = v[u];
+      }
+    }
+    T* tmp = a;
+    a = b;
+    b = tmp;
+  }
+
+  T old[P];
+  int dv[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    if (centre(j)) {
+      old[j] = f[src_at(j)];
+      dv[j] = tl[j] ? 0 : p.d_in[out_at(j)];
+    }
+  }
+  int any = 0;
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    if (centre(j)) {
+      const long long o = out_at(j);
+      out[o] = own[j];
+      r_out[o] = rv[j];
+      p.d_out[o] = tl[j] ? base + tl[j] : dv[j];
+      any |= (own[j] != old[j]);
+    }
+  }
+  any = __syncthreads_or(any);
+  if (any && threadIdx.x == 0) g.changed[cell] = 1;
+}
+
+// uint8, four pixels a thread: window columns 4q .. 4q + 3, q = (warp %
+// ncol) * 32 + lane, rows (warp / ncol) * kRows onwards, held as two
+// words of 16-bit lanes; K < kSteps.
+__global__ void __launch_bounds__(kMaxThreads)
+    qdt_u8_kernel(Geo g, Planes p, int ncol) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int P = kRows;
+  const int K = g.k;
+  const int cell = blockIdx.x;
+  const Window w = morph::locate(g);
+  if (g.active != nullptr && g.active[cell] == 0) {
+    pass_through<uint8_t, int32_t>(g, w, p);
+    return;
+  }
+  const uint8_t* f = static_cast<const uint8_t*>(g.f);
+  uint8_t* out = static_cast<uint8_t*>(g.out);
+  const int32_t* r_in = static_cast<const int32_t*>(p.r_in);
+  int32_t* r_out = static_cast<int32_t*>(p.r_out);
+
+  const int warp = threadIdx.x >> 5;
+  const int q = (warp % ncol) * 32 + (threadIdx.x & 31);
+  const int c0 = 4 * q;
+  const int r0 = (warp / ncol) * P;
+  const auto centre_row = [&](int j) {
+    return r0 + j >= K && r0 + j < K + w.tb;
+  };
+  const auto centre_col = [&](int i) {
+    return c0 + i >= K && c0 + i < K + w.tw;
+  };
+  const auto src_at = [&](int j, int i) {
+    return (w.wr + r0 + j) * g.src_w + w.wc + c0 + i;
+  };
+  const auto out_at = [&](int j, int i) {
+    return (w.orow + r0 + j - K) * g.out_w + w.ocol + c0 + i - K;
+  };
+
+  // The strip, pinned to 255 outside the window, the cell's image and the
+  // array, as (p0, p1) and (p2, p3) lanes; each centre pixel's key.
+  uint32_t own[P][2], key[P][2];
+  bool col_in[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long long gc = w.wc + c0 + i;
+    col_in[i] = c0 + i < w.WW && gc >= 0 && gc < g.src_w;
+  }
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    const long long gr = w.wr + r0 + j;
+    const bool row_in = r0 + j < w.WH && gr >= w.rlo && gr < w.rhi;
+    uint32_t px[4], kv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      px[i] = row_in && col_in[i] ? f[src_at(j, i)] : 0xFFu;
+      const int r = centre_row(j) && centre_col(i) ? r_in[out_at(j, i)] : 0;
+      kv[i] = (min(max(r, -1), 255) + 1) * kSteps + kSteps - 1;
+    }
+    own[j][0] = px[0] | px[1] << 16;
+    own[j][1] = px[2] | px[3] << 16;
+    key[j][0] = kv[0] | kv[1] << 16;
+    key[j][1] = kv[2] | kv[3] << 16;
+  }
+  const int base = p.base[cell];
+
+  // Planes of one byte a pixel: the block's rows and columns and a ring
+  // of one row and one word of columns that is never written.
+  const int S = 32 * ncol + 2;  // words a row
+  const int plane = (static_cast<int>(blockDim.x) / (32 * ncol) * P + 2) * S;
+  uint32_t* a = reinterpret_cast<uint32_t*>(smem_raw);
+  uint32_t* b = a + plane;
+  const int at = (r0 + 1) * S + q + 1;  // window pixels (r0, c0 .. c0 + 3)
+
+  for (int t = 1; t <= K; ++t) {
+#pragma unroll
+    for (int j = 0; j < P; ++j)
+      a[at + j * S] = __byte_perm(own[j][0], own[j][1], 0x6420);
+    __syncthreads();
+    // row mins of rows -1 .. P (the end rows are the next strips')
+    uint32_t ha[P + 2], hb[P + 2];
+#pragma unroll
+    for (int j = -1; j <= P; ++j) {
+      const uint32_t* row = a + at + j * S;
+      uint32_t x, y;
+      if (j < 0 || j == P) {
+        const uint32_t word = row[0];
+        x = __byte_perm(word, 0, 0x4140);  // (p0, p1)
+        y = __byte_perm(word, 0, 0x4342);  // (p2, p3)
+      } else {
+        x = own[j][0];
+        y = own[j][1];
+      }
+      const uint32_t lx = __byte_perm(x, row[-1], 0x1017);  // (p-1, p0)
+      const uint32_t mid = __byte_perm(x, y, 0x1412);       // (p1, p2)
+      const uint32_t ry = __byte_perm(y, row[1], 0x1412);   // (p3, p4)
+      ha[j + 1] = min2(min2(lx, x), mid);
+      hb[j + 1] = min2(min2(mid, y), ry);
+    }
+    // the candidate key of a residual res is res * kSteps + cst
+    const uint32_t cst = (2 * kSteps - 1 - t) * 0x10001u;
+#pragma unroll
+    for (int j = 0; j < P; j += 2) {
+      const uint32_t sa = min2(ha[j + 1], ha[j + 2]);
+      const uint32_t sb = min2(hb[j + 1], hb[j + 2]);
+      const uint32_t va[2] = {min2(ha[j], sa), min2(sa, ha[j + 3])};
+      const uint32_t vb[2] = {min2(hb[j], sb), min2(sb, hb[j + 3])};
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        if (centre_row(j + u)) {
+          key[j + u][0] = max2(key[j + u][0],
+                               (own[j + u][0] - va[u]) * kSteps + cst);
+          key[j + u][1] = max2(key[j + u][1],
+                               (own[j + u][1] - vb[u]) * kSteps + cst);
+        }
+        own[j + u][0] = va[u];
+        own[j + u][1] = vb[u];
+      }
+    }
+    uint32_t* tmp = a;
+    a = b;
+    b = tmp;
+  }
+
+  // Write-back, two rows at a time, each loaded before any is stored
+  // (four at a time spill registers).
+  constexpr int WB = 2;
+  int any = 0;
+#pragma unroll
+  for (int j0 = 0; j0 < P; j0 += WB) {
+    uint8_t old[WB][4];
+    int rv[WB][4], dv[WB][4];
+#pragma unroll
+    for (int u = 0; u < WB; ++u) {
+      const int j = j0 + u;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (centre_row(j) && centre_col(i)) {
+          const uint32_t k = (key[j][i >> 1] >> (16 * (i & 1))) & 0xFFFFu;
+          const int t = kSteps - 1 - static_cast<int>(k % kSteps);
+          old[u][i] = f[src_at(j, i)];
+          rv[u][i] = t ? static_cast<int>(k / kSteps) - 1
+                       : r_in[out_at(j, i)];
+          dv[u][i] = t ? base + t : p.d_in[out_at(j, i)];
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < WB; ++u) {
+      const int j = j0 + u;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (centre_row(j) && centre_col(i)) {
+          const uint8_t v = (own[j][i >> 1] >> (16 * (i & 1))) & 0xFFu;
+          const long long o = out_at(j, i);
+          out[o] = v;
+          r_out[o] = rv[u][i];
+          p.d_out[o] = dv[u][i];
+          any |= (v != old[u][i]);
+        }
+      }
+    }
+  }
+  any = __syncthreads_or(any);
+  if (any && threadIdx.x == 0) g.changed[cell] = 1;
+}
+
+// A launch's block and sub-tile: ncol warps across, nstrip strips down.
+struct Shape {
+  int ncol, nstrip;
+  size_t smem;
+};
+
+// The shape that launches the fewest warps for the whole cell (then the
+// most blocks, so that blocks stay small, then the widest sub-tile); sets
+// g.tb and g.tw.  A warp spans `cols` window columns and each plane row
+// holds them and `ring` columns of `esize`-byte pixels more.  The
+// sub-tile fills the block: TW = cols * ncol - 2K, TB = kRows * nstrip -
+// 2K, each at most the cell's.  False when no shape fits kMaxThreads and
+// 227 KB.
+bool pick_shape(Geo& g, int cols, int ring, int esize, Shape* out) {
+  constexpr int kWarps = kMaxThreads / 32;
+  constexpr size_t kSmem = 227 * 1024;
+  long long best_warps = -1, best_blocks = 0;
+  int best_tw = 0;
+  for (int ncol = 1; ncol <= kWarps; ++ncol) {
+    for (int nstrip = 1; ncol * nstrip <= kWarps; ++nstrip) {
+      const int tw = std::min(g.cell_w, cols * ncol - 2 * g.k);
+      const int tb = std::min(g.cell_h, kRows * nstrip - 2 * g.k);
+      if (tw < 1 || tb < 1) continue;
+      const size_t smem = static_cast<size_t>(2) * (kRows * nstrip + 2)
+                          * (cols * ncol + ring) * esize;
+      if (smem > kSmem) continue;
+      const long long blocks =
+          static_cast<long long>((g.cell_h + tb - 1) / tb)
+          * ((g.cell_w + tw - 1) / tw);
+      const long long warps = blocks * ncol * nstrip;
+      const bool better =
+          best_warps < 0 || warps < best_warps
+          || (warps == best_warps
+              && (blocks > best_blocks
+                  || (blocks == best_blocks && tw > best_tw)));
+      if (better) {
+        best_warps = warps;
+        best_blocks = blocks;
+        best_tw = tw;
+        g.tb = tb;
+        g.tw = tw;
+        *out = Shape{ncol, nstrip, smem};
+      }
+    }
+  }
+  return best_warps > 0;
+}
+
+template <typename Kernel>
+cudaError_t launch_shape(Kernel kern, Geo g, const Planes& p, int n_cells,
+                         int cols, int ring, int esize,
+                         cudaStream_t stream) {
+  Shape sh;
+  if (!pick_shape(g, cols, ring, esize, &sh)) return cudaErrorInvalidValue;
   const int ns = morph::sub_tiles(g);
   if (ns < 0) return cudaErrorInvalidValue;
   if (n_cells == 0) return cudaSuccess;
-  auto kern = qdt_kernel<T>;
-  const cudaError_t e = morph::allow_smem(kern, smem);
+  const cudaError_t e = morph::allow_smem(kern, sh.smem);
   if (e != cudaSuccess) return e;
-  kern<<<dim3(n_cells, ns), kThreads, smem, stream>>>(g, p);
+  kern<<<dim3(n_cells, ns), 32 * sh.ncol * sh.nstrip, sh.smem, stream>>>(
+      g, p, sh.ncol);
   return cudaGetLastError();
+}
+
+// uint8 with K < kSteps takes the packed kernel (a plane row: 128 ncol
+// bytes and a word each side), every other case the pixel kernel (32
+// ncol pixels and one each side).
+template <typename T>
+cudaError_t launch_typed(const Geo& g, const Planes& p, int n_cells,
+                         cudaStream_t stream) {
+  if (g.k < 1 || g.cell_h < 1 || g.cell_w < 1) return cudaErrorInvalidValue;
+  if (sizeof(T) == 1 && g.k < kSteps)
+    return launch_shape(qdt_u8_kernel, g, p, n_cells, 128, 8, 1, stream);
+  return launch_shape(qdt_pixel_kernel<T>, g, p, n_cells, 32, 2, sizeof(T),
+                      stream);
 }
 
 // dtype codes: 0 uint8, 1 uint16, 2 int32, 3 float32, 4 float64

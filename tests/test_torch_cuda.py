@@ -118,21 +118,41 @@ def _qdt_image(rng, shape, dtype):
     return _rand(rng, shape, dtype)
 
 
-@pytest.mark.parametrize("dtype", QDT_DTYPES, ids=lambda d: d.__name__)
-def test_qdt_kernels_match_plain_versions(cuda, dtype):
-    rng = np.random.default_rng(6)
-    f = torch.from_numpy(_qdt_image(rng, (H, W), dtype)).to(cuda)
+#: (h, w, band, K, bands per image, tile): K = 1, an odd K with bands off
+#: a strip's 16 rows, tiles and patches whose width and window origin are
+#: not multiples of 4 (the uint8 body's packed words), cells narrower than
+#: a warp, and K = 32 at the main path's 64x128 cell; their r planes span
+#: the int32 range (the uint8 body clamps r to [-1, 255]).
+QDT_EDGE_GRIDS = [(10, 40, 5, 1, 2, 8), (63, 84, 21, 7, 3, 28),
+                  (28, 42, 14, 7, 2, 14), (192, 96, 48, 16, 2, 32),
+                  (128, 256, 64, 32, 2, 128)]
+
+
+def _qdt_r(rng, shape, acc, wide):
+    """r in [0, 90), or over the int32 range with -1, 256 and the
+    extremes in place."""
+    if not wide:
+        return torch.from_numpy(rng.integers(0, 90, shape)).to(acc)
+    r = rng.integers(-2**31, 2**31, shape)
+    near = rng.random(shape) < 0.5
+    r[near] = rng.integers(-2, 258, int(near.sum()))
+    r.flat[:4] = (-2**31, 2**31 - 1, -1, 256)
+    return torch.from_numpy(r).to(acc)
+
+
+def _check_qdt(cuda, rng, dtype, h, w, band, k, bpi, tile, wide):
+    f = torch.from_numpy(_qdt_image(rng, (h, w), dtype)).to(cuda)
     acc = qdt_acc_dtype(f.dtype)
-    r = torch.from_numpy(rng.integers(0, 90, (H, W))).to(cuda, acc)
-    d = torch.from_numpy(rng.integers(0, 50, (H, W), dtype=np.int32)).to(
+    r = _qdt_r(rng, (h, w), acc, wide).to(cuda)
+    d = torch.from_numpy(rng.integers(0, 50, (h, w), dtype=np.int32)).to(
         cuda)
 
     def grid(shape, hi):
         return torch.from_numpy(rng.integers(0, hi, shape,
                                              dtype=np.int32)).to(cuda)
 
-    geo = dict(fuse_k=K, band_h=BAND, bands_per_image=BPI)
-    rows, tiles = (H // BAND, 1), (H // BAND, W // TILE)
+    geo = dict(fuse_k=k, band_h=band, bands_per_image=bpi)
+    rows, tiles = (h // band, 1), (h // band, w // tile)
     base, act = grid(rows, 99), grid(rows, 2)
     for got, want in zip(
             TQ.qdt_chain_step(f, r, d, base, active=act, **geo),
@@ -140,21 +160,30 @@ def test_qdt_kernels_match_plain_versions(cuda, dtype):
         assert _same(got, want)
     base, act = grid(tiles, 99), grid(tiles, 2)
     for got, want in zip(
-            TQ.qdt_tile_step(f, r, d, base, tile_w=TILE, active=act, **geo),
-            TQ.qdt_tile_step_plain(f, r, d, base, tile_w=TILE, active=act,
+            TQ.qdt_tile_step(f, r, d, base, tile_w=tile, active=act, **geo),
+            TQ.qdt_tile_step_plain(f, r, d, base, tile_w=tile, active=act,
                                    **geo)):
         assert _same(got, want)
     cap = 3
-    fp = f[: cap * (BAND + 2 * K), : TILE + 2 * K].contiguous()
-    rm = r[: cap * BAND, :TILE].contiguous()
-    dm = d[: cap * BAND, :TILE].contiguous()
+    ph, pw = band + 2 * k, tile + 2 * k
+    fp = torch.from_numpy(_qdt_image(rng, (cap * ph, pw), dtype)).to(cuda)
+    rm = _qdt_r(rng, (cap * band, tile), acc, wide).to(cuda)
+    dm = grid((cap * band, tile), 50)
     valid = torch.tensor([[1], [0], [1]], dtype=torch.int32, device=cuda)
     base = torch.tensor([[4], [9], [31]], dtype=torch.int32, device=cuda)
-    cargs = dict(fuse_k=K, band_h=BAND, tile_w=TILE)
+    cargs = dict(fuse_k=k, band_h=band, tile_w=tile)
     for got, want in zip(
             TQ.qdt_compact_step(fp, rm, dm, valid, base, **cargs),
             TQ.qdt_compact_step_plain(fp, rm, dm, valid, base, **cargs)):
         assert _same(got, want)
+
+
+@pytest.mark.parametrize("dtype", QDT_DTYPES, ids=lambda d: d.__name__)
+def test_qdt_kernels_match_plain_versions(cuda, dtype):
+    rng = np.random.default_rng(6)
+    _check_qdt(cuda, rng, dtype, H, W, BAND, K, BPI, TILE, wide=False)
+    for g in QDT_EDGE_GRIDS:
+        _check_qdt(cuda, rng, dtype, *g, wide=True)
 
 
 @pytest.mark.parametrize("expr", ("qdt", "qdt_l1"))

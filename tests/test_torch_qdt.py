@@ -62,13 +62,29 @@ def _rand(rng, shape, dtype, nan=True):
                         endpoint=True).astype(dtype)
 
 
-def _planes(rng, shape, dtype):
-    """Mid-flight r (accumulator dtype) and d planes."""
-    if np.issubdtype(dtype, np.floating):
+def _planes(rng, shape, dtype, wide_r=False):
+    """Mid-flight r (accumulator dtype) and d planes.  ``wide_r`` draws
+    r over the whole int32 range with its extremes in place (negative
+    values, values above any uint8 residual): whatever r holds, the
+    masked store is ``res > r``, which the CUDA kernel's uint8 clamp of
+    r to [-1, 255] must leave unchanged."""
+    if wide_r:
+        info = np.iinfo(np.int32)
+        r = rng.integers(info.min, info.max, shape, endpoint=True)
+        r.flat[:4] = (info.min, info.max, -1, 256)
+        r = r.astype(np.float32 if np.issubdtype(dtype, np.floating)
+                     else np.int32)
+    elif np.issubdtype(dtype, np.floating):
         r = _rand(rng, shape, np.float32)
     else:
         r = rng.integers(0, 200, shape).astype(np.int32)
     return r, rng.integers(0, 50, shape).astype(np.int32)
+
+
+#: (dtype, wide_r) cases of the plain-vs-Pallas tests: r from [0, 200)
+#: (ids as before), then r over the whole int32 range.
+R_CASES = [(d, False) for d in DTYPES] + [(d, True) for d in DTYPES]
+R_IDS = IDS + [f"{i}-r_int32" for i in IDS]
 
 
 def _t(x):
@@ -84,11 +100,11 @@ def _all_eq(ref, port):
     assert [_eq(a, b) for a, b in zip(ref, port)] == [True] * 4
 
 
-@pytest.mark.parametrize("dtype", DTYPES, ids=IDS)
-def test_qdt_chain_step_plain_matches_pallas(dtype):
+@pytest.mark.parametrize("dtype, wide_r", R_CASES, ids=R_IDS)
+def test_qdt_chain_step_plain_matches_pallas(dtype, wide_r):
     rng = np.random.default_rng(10)
     f = _rand(rng, (H, W), dtype)
-    r, d = _planes(rng, (H, W), dtype)
+    r, d = _planes(rng, (H, W), dtype, wide_r)
     base = rng.integers(0, 100, (H // BAND, 1)).astype(np.int32)
     act = np.array([[1], [0], [1], [1], [0], [1]], np.int32)
     args = dict(fuse_k=K, band_h=BAND, bands_per_image=BPI)
@@ -100,11 +116,11 @@ def test_qdt_chain_step_plain_matches_pallas(dtype):
     assert port[3].dtype == torch.int32 and port[3].shape == (6, 1)
 
 
-@pytest.mark.parametrize("dtype", DTYPES, ids=IDS)
-def test_qdt_tile_step_plain_matches_pallas(dtype):
+@pytest.mark.parametrize("dtype, wide_r", R_CASES, ids=R_IDS)
+def test_qdt_tile_step_plain_matches_pallas(dtype, wide_r):
     rng = np.random.default_rng(11)
     f = _rand(rng, (H, W), dtype)
-    r, d = _planes(rng, (H, W), dtype)
+    r, d = _planes(rng, (H, W), dtype, wide_r)
     grid = (H // BAND, W // TILE)
     base = rng.integers(0, 100, grid).astype(np.int32)
     act = rng.integers(0, 2, grid).astype(np.int32)
@@ -117,12 +133,12 @@ def test_qdt_tile_step_plain_matches_pallas(dtype):
     _all_eq(ref, port)
 
 
-@pytest.mark.parametrize("dtype", DTYPES, ids=IDS)
-def test_qdt_compact_step_plain_matches_pallas(dtype):
+@pytest.mark.parametrize("dtype, wide_r", R_CASES, ids=R_IDS)
+def test_qdt_compact_step_plain_matches_pallas(dtype, wide_r):
     rng = np.random.default_rng(12)
     cap, ph, pw = 4, BAND + 2 * K, TILE + 2 * K
     fp = _rand(rng, (cap * ph, pw), dtype)
-    r, d = _planes(rng, (cap * BAND, TILE), dtype)
+    r, d = _planes(rng, (cap * BAND, TILE), dtype, wide_r)
     valid = np.array([[1], [1], [0], [1]], np.int32)  # slot 2: sentinel
     base = np.array([[3], [40], [0], [11]], np.int32)
     args = dict(fuse_k=K, band_h=BAND, tile_w=TILE)
