@@ -8,8 +8,11 @@ Phases, each of which makes the script exit non-zero when it fails:
    CUDA kernel from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
    source, all started together);
 2. kernels: each of the ten kernels against its plain PyTorch version
-   on the card — the four morphology kernels over uint8/uint16/float32
-   and both ops, the three QDT kernels over uint8/uint16/int32 (with its
+   on the card — the four morphology kernels over uint8/uint16/int32/
+   float32/float64 and both ops (with the lattice extremes, cells that
+   do not move, and the thread-strip bodies' edges: K = 1, odd K, tiles
+   narrower than a warp's 128 packed uint8 columns, widths off 128,
+   K = 32 on 64x256), the three QDT kernels over uint8/uint16/int32 (with its
    extremes)/float32/float64 (and the thread-strip bodies' edges: K = 1,
    odd K, widths and window origins off the uint8 body's 4-pixel words,
    narrow cells, K = 32, r over the int32 range), the three gdt kernels
@@ -33,9 +36,9 @@ Phases, each of which makes the script exit non-zero when it fails:
    cases (the raster result must also equal the wavefront result);
 4. trace: one profiled run of five main-path cases (the device's busy
    and idle share, and where its time goes);
-5. timing: each kernel, its plain version and one PyTorch yardstick
-   call at the main path's shapes, beside the bound computed from the
-   same inputs.
+5. timing: each kernel (``chain_step`` in uint8 and in float32), its
+   plain version and one PyTorch yardstick call at the main path's
+   shapes, beside the bound computed from the same inputs.
 
 The third-to-last line of standard output is the card's ``nvidia-smi``
 name and power limit, the second-to-last ``{"kernels": [...]}``, and
@@ -65,7 +68,8 @@ PEAK_OPS_PER_S = 67e12
 #: Where every tensor of the run lives.
 DEVICE = "cuda"
 
-DTYPES = (torch.uint8, torch.uint16, torch.float32)
+DTYPES = (torch.uint8, torch.uint16, torch.int32, torch.float32,
+          torch.float64)
 OPS = ("erode", "dilate")
 
 
@@ -164,6 +168,34 @@ class Checks:
         self.count += 1
 
 
+def morph_image(shape, dtype, gen):
+    """A morphology check input: NaN in float images, and the lattice
+    extremes (the pins of the erosion and the dilation) in integer
+    ones."""
+    x = rand(shape, dtype, gen, 0.01 if dtype.is_floating_point else 0.0)
+    if not dtype.is_floating_point:
+        info = torch.iinfo(dtype)
+        for v in (info.min, info.max):
+            hit = torch.rand(shape, generator=gen, device=DEVICE) < 0.05
+            if dtype == torch.uint16:  # through the int16 bit view
+                x.view(torch.int16)[hit] = torch.tensor(
+                    v, dtype=torch.int32).to(torch.int16).item()
+            else:
+                x[hit] = v
+    return x
+
+
+#: Morphology grids where the thread-strip bodies can go wrong, beside
+#: the grids above: K = 1, odd K (7) with bands off a strip's 16 rows,
+#: tiles of 8, 14, 28 and 32 columns (narrower than a warp's 128 packed
+#: uint8 columns, and off the 4-pixel words), widths that are not a
+#: multiple of 128, and K = 32 on 64x256.  The marker equals the mask on
+#: the top half of each plane, so cells there keep their flag at 0.
+MORPH_EDGE_GRIDS = [(1, 2, 5, 40, 8, 1), (1, 3, 21, 84, 28, 7),
+                    (1, 2, 14, 42, 14, 7), (2, 2, 48, 96, 32, 16),
+                    (1, 2, 32, 200, 40, 8), (1, 2, 64, 256, 128, 32)]
+
+
 def check_kernels(checks: Checks) -> None:
     from repro_torch.kernels import erode_chain as EC
     from repro_torch.kernels import geodesic_chain as GC
@@ -175,14 +207,18 @@ def check_kernels(checks: Checks) -> None:
     # sub-tile), an N=3 stack, and small cells
     grids = [(3, 2, 160, 480, 160, 16), (3, 3, 32, 256, 128, 8),
              (1, 2, 64, 384, 128, 32)]
+    cases = ([(g, False) for g in grids]
+             + [(g, True) for g in MORPH_EDGE_GRIDS])
     for dtype in DTYPES:
-        nan = 0.01 if dtype.is_floating_point else 0.0
         for op in OPS:
-            for n, bpi, bh, w, tw, k in grids:
+            for (n, bpi, bh, w, tw, k), edge in cases:
                 h = n * bpi * bh
-                what = f"{dtype} {op} h={h} w={w} band={bh} tile={tw} k={k}"
-                x = rand((h, w), dtype, gen, nan)
-                m = rand((h, w), dtype, gen, nan)
+                what = (f"{dtype} {op} h={h} w={w} band={bh} tile={tw} k={k}"
+                        f"{' edge' if edge else ''}")
+                x = morph_image((h, w), dtype, gen)
+                m = morph_image((h, w), dtype, gen)
+                if edge:
+                    x[:h // 2] = m[:h // 2]
                 args = dict(op=op, fuse_k=k, band_h=bh, bands_per_image=bpi)
                 checks.record("chain_step",
                               [EC.chain_step(x, **args)],
@@ -202,9 +238,11 @@ def check_kernels(checks: Checks) -> None:
                                           **args),
                     GC.geodesic_tile_step_plain(x, m, tile_w=tw, active=act,
                                                 **args), what)
-                cap = 5
-                fp = rand((cap * (bh + 2 * k), tw + 2 * k), dtype, gen, nan)
-                mp = rand((cap * (bh + 2 * k), tw + 2 * k), dtype, gen, nan)
+                cap, ph = 5, bh + 2 * k
+                fp = morph_image((cap * ph, tw + 2 * k), dtype, gen)
+                mp = morph_image((cap * ph, tw + 2 * k), dtype, gen)
+                if edge:
+                    fp[:2 * ph] = mp[:2 * ph]
                 valid = torch.tensor([[1], [0], [1], [1], [0]],
                                      dtype=torch.int32, device=DEVICE)
                 cargs = dict(op=op, fuse_k=k, band_h=bh, tile_w=tw)
@@ -609,8 +647,8 @@ TRACED = ("erode1500/uint8", "hmax40/uint8", "reconstruct-rows/float32",
           "qdt/uint8", "gdt/float32")
 
 #: Name parts of the port's own kernels in a trace.
-PORT_KERNELS = ("fused_kernel", "qdt_pixel_kernel", "qdt_u8_kernel",
-                "gdt_kernel")
+PORT_KERNELS = ("morph_u8_kernel", "morph_pixel_kernel", "qdt_pixel_kernel",
+                "qdt_u8_kernel", "gdt_kernel")
 
 
 def trace_main_path(rows, card: str) -> list:
@@ -954,6 +992,26 @@ def time_kernels(checks: Checks, images) -> dict:
         library_ms=cuda_ms(lambda: library_chain(xf, k), reps=3),
         bound_ms=b_ms, bound_by=b_by,
         shape=f"({x.shape[0]}, {x.shape[1]}) uint8 K={k} band_h={bh}")
+
+    # kernel 1 in float32 (the float32 plan of E.erode(1500)): the pixel
+    # body, timed alone
+    fplan = plan_chain(SIZE, SIZE, torch.float32, CHAIN, n_images=N)
+    k, bh = fplan.fuse_k, fplan.band_h
+    x32 = K._stacked(K._pad(images["float32"], fplan, float("-inf")))
+    args = dict(op="dilate", fuse_k=k, band_h=bh,
+                bands_per_image=fplan.n_bands)
+    checks.record("chain_step", [EC.chain_step(x32, **args)],
+                  [EC.chain_step_plain(x32, **args)], "main-path shape")
+    x4 = x32.reshape(N, 1, fplan.height_pad, fplan.width_pad)
+    b_ms, b_by = bound(2 * x32.numel() * x32.element_size(),
+                       4 * k * x32.numel())
+    out["chain_step/float32"] = dict(
+        ms=cuda_ms(lambda: EC.chain_step(x32, **args)),
+        plain_ms=cuda_ms(lambda: EC.chain_step_plain(x32, **args), reps=3),
+        library_ms=cuda_ms(lambda: library_chain(x4, k), reps=3),
+        bound_ms=b_ms, bound_by=b_by,
+        shape=f"({x32.shape[0]}, {x32.shape[1]}) float32 K={k} "
+              f"band_h={bh}")
 
     # kernels 2-4: geodesic marker/mask from HMAX_40
     mask = K._stacked(K._pad(u8, plan, 0))

@@ -3,19 +3,25 @@ that turns an expression graph into an
 :class:`~repro_torch.api.executable.Executable` (port of
 ``repro.api.compile``).
 
-Compilation lowers the graph (``repro_torch.api.lower``) and binds one
+Compilation first rewrites the graph with the expression optimizer
+(``repro_torch.opt``, on by default as in the reference; ``rewrite=False``
+compiles the source graph verbatim), then lowers the *canonical* graph
+(``repro_torch.api.lower``) and binds one
 :class:`~repro_torch.core.chain.ChainPlan` per plan group with the
 reference's planner: a single-class program (all fixed chains, or all
 convergent) shares one plan; a mixed program is specialized per
 contiguous fixed/convergent group (``specialize=None`` auto,
 ``True``/``False`` force), with a re-band between groups.  The
-reference's expression optimizer and static verifier are not ported
-yet (ROADMAP.md, queue 1, items 7-8): the graph compiles as given,
-like the reference's ``rewrite=False``.
+reference's static verifier (``verify=``) is not ported yet (ROADMAP.md,
+queue 1, item 8).
 
-Executables are cached in a module-level LRU keyed on the graph plus
-the binding ``(shape, dtype, backend, plan, max_chunks, specialize,
-device)``; ``cache_stats()`` exposes the hit/miss counters.
+Executables are cached in a module-level LRU keyed on the canonical
+graph plus the binding ``(shape, dtype, backend, plan, max_chunks,
+specialize, device)``, so source graphs that are algebraically equal
+share one compiled program; ``cache_stats()`` exposes the hit/miss
+counters, with hits split into ``structural_hits`` (the same source
+graph again) and ``shared_hits`` (another source graph with the same
+canonical form).
 """
 from __future__ import annotations
 
@@ -36,13 +42,16 @@ CACHE_CAPACITY = 512
 _CONVERGENT_KINDS = ("reconstruct", "qdt", "gdt")
 
 _cache: collections.OrderedDict = collections.OrderedDict()
+_sources: dict = {}  # cache key → set of source Exprs that mapped to it
 _lock = threading.Lock()
 _hits = 0
 _misses = 0
+_structural_hits = 0
+_shared_hits = 0
 
 
 def compile(expr: Expr, shape, dtype, backend: str | None = None, *,
-            plan=None, max_chunks: int | None = None,
+            plan=None, max_chunks: int | None = None, rewrite: bool = True,
             specialize: bool | None = None, device=None) -> Executable:
     """Lower ``expr`` and bind it to a concrete (shape, dtype, backend,
     device).
@@ -56,7 +65,8 @@ def compile(expr: Expr, shape, dtype, backend: str | None = None, *,
     kernel wrappers run their plain PyTorch versions.  ``plan``
     overrides the derived plan (validated against the shape; disables
     per-group specialization); ``max_chunks`` caps the reconstructions'
-    K-chunk iterations.
+    K-chunk iterations.  ``rewrite`` (default on) runs the expression
+    optimizer first; ``rewrite=False`` compiles the source graph verbatim.
     """
     if isinstance(expr, Pipe):
         raise TypeError(
@@ -76,23 +86,41 @@ def compile(expr: Expr, shape, dtype, backend: str | None = None, *,
         raise ValueError(f"shape must be (H, W) or (N, H, W), got {shape}")
     dtype = as_dtype(dtype)
 
-    global _hits, _misses
-    key = (expr, shape3, was_2d, dtype, backend, plan, max_chunks,
+    if rewrite:
+        # local import: repro_torch.opt sits between api.expr and
+        # api.lower in the layering but imports lower's graph walkers
+        from repro_torch.opt import rewrite_traced
+
+        rewritten = rewrite_traced(expr)
+        canonical, trace = rewritten.expr, rewritten.trace
+    else:
+        canonical, trace = expr, ()
+
+    global _hits, _misses, _structural_hits, _shared_hits
+    key = (canonical, shape3, was_2d, dtype, backend, plan, max_chunks,
            specialize, str(device))
     with _lock:
         exe = _cache.get(key)
         if exe is not None:
             _hits += 1
+            seen = _sources.setdefault(key, set())
+            if expr in seen:
+                _structural_hits += 1
+            else:
+                _shared_hits += 1
+                seen.add(expr)
             _cache.move_to_end(key)
             return exe
         _misses += 1
 
-    exe = _build(expr, shape3, was_2d, dtype, backend, plan, max_chunks,
-                 specialize, device)
+    exe = _build(canonical, shape3, was_2d, dtype, backend, plan,
+                 max_chunks, specialize, device, trace)
     with _lock:
         _cache[key] = exe
+        _sources.setdefault(key, set()).add(expr)
         while len(_cache) > CACHE_CAPACITY:
-            _cache.popitem(last=False)
+            old_key, _ = _cache.popitem(last=False)
+            _sources.pop(old_key, None)
     return exe
 
 
@@ -145,7 +173,7 @@ def _group_plan(program, idxs, h, w, dtype, n, convergent):
 
 
 def _build(expr, shape3, was_2d, dtype, backend, plan, max_chunks,
-           specialize, device):
+           specialize, device, trace):
     program = lower(expr)
     n, h, w = shape3
     if (not dtype.is_floating_point
@@ -189,25 +217,36 @@ def _build(expr, shape3, was_2d, dtype, backend, plan, max_chunks,
     else:
         plan = None  # the oracle engine runs unpadded
     return Executable(program, shape3, dtype, backend, plan, max_chunks,
-                      was_2d, device, seg_plans=seg_plans)
+                      was_2d, device, seg_plans=seg_plans,
+                      rewrite_trace=trace)
 
 
 def cache_stats() -> dict:
-    """Compile-cache counters."""
+    """Compile-cache counters.
+
+    ``hits`` splits into ``structural_hits`` — the very same source
+    graph was compiled before — and ``shared_hits`` — a *different*
+    source graph canonicalized to an already-compiled program (never
+    counted as a miss)."""
     with _lock:
         total = _hits + _misses
         return {
             "entries": len(_cache),
             "capacity": CACHE_CAPACITY,
             "hits": _hits,
+            "structural_hits": _structural_hits,
+            "shared_hits": _shared_hits,
             "misses": _misses,
             "hit_rate": _hits / total if total else 0.0,
         }
 
 
 def clear_cache() -> None:
-    global _hits, _misses
+    global _hits, _misses, _structural_hits, _shared_hits
     with _lock:
         _cache.clear()
+        _sources.clear()
         _hits = 0
         _misses = 0
+        _structural_hits = 0
+        _shared_hits = 0

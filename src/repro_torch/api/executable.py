@@ -17,8 +17,9 @@ groups exactly as the reference does.
 ``core.morphology`` oracle bodies on unpadded tensors (the reference's
 ``"xla"`` engine) — bit-exact with the ``"cuda"`` engine.
 
-The optimizer and the static verifier of the reference are not ported
-yet: programs run as given (the reference's ``rewrite=False``).
+The program is the one ``compile`` lowered: the optimizer's canonical
+graph by default, the source graph with ``rewrite=False``.  The
+reference's static verifier is not ported yet.
 """
 from __future__ import annotations
 
@@ -71,11 +72,14 @@ class Executable:
     accounting of the compiled program, key for key as the reference's.
     ``seg_plans`` activates per-group plan specialization: a tuple of
     ``(segment_indices, ChainPlan)`` groups covering the segments.
+    ``rewrite_trace`` carries the optimizer's
+    :class:`~repro_torch.opt.engine.Applied` steps for this program
+    (empty when compiled with ``rewrite=False`` or nothing fired).
     """
 
     def __init__(self, program: Program, shape3: tuple, dtype, backend: str,
                  plan, max_chunks: int | None, was_2d: bool, device, *,
-                 seg_plans=None):
+                 seg_plans=None, rewrite_trace=()):
         self.program = program
         self.n_images, self.height, self.width = shape3
         self.dtype = dtype
@@ -85,10 +89,13 @@ class Executable:
         self.was_2d = was_2d
         self.device = torch.device(device)
         self.seg_plans = tuple(seg_plans) if seg_plans else None
+        self.rewrite_trace = tuple(rewrite_trace)
         self._mask_cache: dict = {}
         seg_key = (tuple((idxs, p.key) for idxs, p in self.seg_plans)
                    if self.seg_plans is not None else None)
-        # every field that can change what a call computes or returns
+        # every field that can change what a call computes or returns;
+        # ``rewrite_trace`` is provenance, not behaviour: the program it
+        # produced is already keyed
         self.key = (
             program.run_sig, shape3, dtype_name(dtype), backend,
             plan.key if plan is not None else None,

@@ -6,11 +6,11 @@
 // All take a TB x TW sub-tile of one scheduling cell per block: a row
 // band (n_tiles = 1, cell_w = array width), a band x column tile, or one
 // pre-pinned patch of a vertically stacked patch array (compact).  This
-// header holds the lattice identities, the NaN-propagating min/max,
-// where a block's window lies (locate), its load into shared memory with
-// the pinning of rows outside the cell's image and columns outside the
-// array (load_window), and the choice of the sub-tile (pick_subtile).
-// Sub-tiling is exact: after K steps a centre pixel depends only on its
+// header holds the lattice identities, the NaN-propagating min/max and
+// the PTX SIMD min/max, where a block's window lies and which source
+// rows are pinned (locate), and the sub-tile count of a launch
+// (sub_tiles); each source picks its own block shape.  Sub-tiling is
+// exact: after K steps a centre pixel depends only on its
 // K-neighbourhood inside its image, so any TB x TW gives the same
 // result.
 
@@ -20,8 +20,6 @@
 #include <stdint.h>
 
 namespace morph {
-
-constexpr int kThreads = 256;
 
 template <typename T> struct Lattice;
 template <> struct Lattice<uint8_t> {
@@ -57,6 +55,52 @@ __device__ __forceinline__ T pick(T a, T b) {
   return (b > a || b != b) ? b : a;
 }
 
+// float32 min and max that return the canonical NaN when either operand
+// is NaN: one PTX min.NaN / max.NaN on the card.
+__host__ __device__ __forceinline__ float min_nan(float a, float b) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#else
+  return (a != a || b != b) ? __builtin_nanf("") : (b < a ? b : a);
+#endif
+}
+__host__ __device__ __forceinline__ float max_nan(float a, float b) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#else
+  return (a != a || b != b) ? __builtin_nanf("") : (b > a ? b : a);
+#endif
+}
+
+// Lane-wise min and max of two words of 16-bit lanes: PTX min.u16x2 /
+// max.u16x2 on the card (Hopper's native 16-bit SIMD).
+__host__ __device__ __forceinline__ uint32_t min2(uint32_t a, uint32_t b) {
+#ifdef __CUDA_ARCH__
+  uint32_t r;
+  asm("min.u16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+#else
+  const uint32_t lo = (a & 0xFFFFu) < (b & 0xFFFFu) ? a & 0xFFFFu
+                                                   : b & 0xFFFFu;
+  return lo | ((a >> 16) < (b >> 16) ? a >> 16 : b >> 16) << 16;
+#endif
+}
+__host__ __device__ __forceinline__ uint32_t max2(uint32_t a, uint32_t b) {
+#ifdef __CUDA_ARCH__
+  uint32_t r;
+  asm("max.u16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+#else
+  const uint32_t lo = (a & 0xFFFFu) > (b & 0xFFFFu) ? a & 0xFFFFu
+                                                   : b & 0xFFFFu;
+  return lo | ((a >> 16) > (b >> 16) ? a >> 16 : b >> 16) << 16;
+#endif
+}
+
 // Where one launch reads and writes.  A cell is a row band (n_tiles=1,
 // cell_w = array width), a band x column tile, or (compact) one
 // pre-pinned patch of a vertically stacked patch array.
@@ -79,7 +123,7 @@ struct Geo {
 // One block's sub-tile: blockIdx.x is the cell, blockIdx.y the sub-tile.
 struct Window {
   int tb, tw;            // this sub-tile (ragged at the cell's edge)
-  int WH, WW, WS;        // window rows and columns, shared-memory stride
+  int WH, WW;            // window rows and columns
   long long wr, wc;      // window origin in the source
   long long rlo, rhi;    // the source rows that are not pinned
   long long orow, ocol;  // the sub-tile's origin in the output
@@ -94,7 +138,6 @@ __device__ __forceinline__ Window locate(const Geo& g) {
   w.tw = min(g.tw, g.cell_w - sc * g.tw);
   w.WH = w.tb + 2 * K;
   w.WW = w.tw + 2 * K;
-  w.WS = g.tw + 2 * K;
   if (g.compact) {
     const long long pr = static_cast<long long>(cell) * (g.cell_h + 2 * K);
     w.wr = pr + static_cast<long long>(sr) * g.tb;
@@ -116,87 +159,6 @@ __device__ __forceinline__ Window locate(const Geo& g) {
     w.rhi = w.rlo + g.rows_per_image;
   }
   return w;
-}
-
-// The (WH, WW) window of src, each pixel through map, into dst (row
-// stride WS), with rows outside [rlo, rhi) and columns outside the array
-// set to id.
-template <typename D, typename S, typename Map>
-__device__ __forceinline__ void load_window_as(D* dst, const S* src,
-                                               const Geo& g, const Window& w,
-                                               D id, Map map) {
-  for (int i = threadIdx.x; i < w.WH * w.WW; i += kThreads) {
-    const int r = i / w.WW, c = i % w.WW;
-    const long long gr = w.wr + r, gc = w.wc + c;
-    const bool in = gr >= w.rlo && gr < w.rhi && gc >= 0 && gc < g.src_w;
-    dst[r * w.WS + c] = in ? map(src[gr * g.src_w + gc]) : id;
-  }
-}
-
-struct Same {
-  template <typename T>
-  __device__ __forceinline__ T operator()(T v) const { return v; }
-};
-
-// The (WH, WW) window of src into dst, pinned to id as load_window_as.
-template <typename T>
-__device__ __forceinline__ void load_window(T* dst, const T* src,
-                                            const Geo& g, const Window& w,
-                                            T id) {
-  load_window_as(dst, src, g, w, id, Same());
-}
-
-// The sub-tile's centre of src, copied through to out.
-template <typename T>
-__device__ __forceinline__ void copy_centre(T* out, const T* src,
-                                            const Geo& g, const Window& w) {
-  const int K = g.k;
-  for (int i = threadIdx.x; i < w.tb * w.tw; i += kThreads) {
-    const int r = i / w.tw, c = i % w.tw;
-    out[(w.orow + r) * g.out_w + w.ocol + c] =
-        src[(w.wr + K + r) * g.src_w + w.wc + K + c];
-  }
-}
-
-__host__ __device__ inline size_t align16(size_t n) {
-  return (n + 15) & ~static_cast<size_t>(15);
-}
-
-// Choose the sub-tile: the largest useful fraction TB*TW/((TB+2K)(TW+2K))
-// whose shared memory fits half the 227 KB (two blocks per SM), else all
-// of it.  The shared memory is narr windows of esize-byte pixels and,
-// where centre_bytes > 0, centre_bytes for each pixel of the TB x TW
-// centre after them (16-byte aligned).  Sub-tiles never exceed the cell.
-inline bool pick_subtile(int k, int esize, int narr, int centre_bytes,
-                         int cell_h, int cell_w, int* tb_out, int* tw_out,
-                         size_t* smem_out) {
-  static const int kTB[] = {128, 64, 32, 16, 8};
-  static const int kTW[] = {256, 128, 64, 32};
-  static const size_t kBudget[] = {113 * 1024, 227 * 1024};
-  for (size_t budget : kBudget) {
-    double best = -1.0;
-    for (int tb0 : kTB) {
-      for (int tw0 : kTW) {
-        const int tb = tb0 < cell_h ? tb0 : cell_h;
-        const int tw = tw0 < cell_w ? tw0 : cell_w;
-        size_t smem = static_cast<size_t>(narr) * (tb + 2 * k)
-                      * (tw + 2 * k) * esize;
-        if (centre_bytes > 0)
-          smem = align16(smem) + static_cast<size_t>(tb) * tw * centre_bytes;
-        if (smem > budget) continue;
-        const double eff = static_cast<double>(tb) * tw
-                           / ((tb + 2.0 * k) * (tw + 2.0 * k));
-        if (eff > best) {
-          best = eff;
-          *tb_out = tb;
-          *tw_out = tw;
-          *smem_out = smem;
-        }
-      }
-    }
-    if (best > 0) return true;
-  }
-  return false;
 }
 
 // Sets g.n_sub_c and returns the sub-tiles per cell (gridDim.y), or -1

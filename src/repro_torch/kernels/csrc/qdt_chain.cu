@@ -100,6 +100,8 @@ namespace {
 
 using morph::Geo;
 using morph::Lattice;
+using morph::max2;
+using morph::min2;
 using morph::pick;
 using morph::Window;
 
@@ -131,21 +133,7 @@ __device__ __forceinline__ T emin(T a, T b) {
   return pick<T, true>(a, b);
 }
 __device__ __forceinline__ float emin(float a, float b) {
-  float r;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-
-// Lane-wise min and max of two words of 16-bit lanes.
-__device__ __forceinline__ uint32_t min2(uint32_t a, uint32_t b) {
-  uint32_t r;
-  asm("min.u16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
-  return r;
-}
-__device__ __forceinline__ uint32_t max2(uint32_t a, uint32_t b) {
-  uint32_t r;
-  asm("max.u16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
-  return r;
+  return morph::min_nan(a, b);
 }
 
 // The residual and distance planes of one launch, and the per-cell base.

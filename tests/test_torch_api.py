@@ -1,9 +1,10 @@
-"""``repro_torch.api.compile`` against ``repro.api.compile(...,
-rewrite=False)``: every main-path composite on 2-D images and (N, H, W)
-stacks, both port engines against the reference's outputs (its ``"xla"``
-engine, which the reference holds bit-exact with ``"pallas"``), and
-``stats()`` equal to the reference's ``"pallas"`` executable, key for
-key.  Tiny shapes; the port runs on the CPU (``device="cpu"``), where
+"""``repro_torch.api.compile`` against ``repro.api.compile``: every
+main-path composite on 2-D images and (N, H, W) stacks, both port
+engines against the reference's outputs (its ``"xla"`` engine, which the
+reference holds bit-exact with ``"pallas"``), and ``stats()`` equal to
+the reference's ``"pallas"`` executable, key for key, with
+``rewrite=False`` on both sides and with default arguments (both
+rewrite).  Tiny shapes; the port runs on the CPU (``device="cpu"``), where
 the ``"cuda"`` engine's wrappers take their plain PyTorch versions.
 """
 import numpy as np
@@ -75,10 +76,16 @@ def test_compile_matches_reference(name, shape):
         out = exe(torch.from_numpy(f))
         assert out.dtype == torch.from_numpy(f).dtype
         assert np.array_equal(ref, out.numpy()), backend
-    stats = TA.compile(port_expr, shp, dtype, device="cpu").stats()
+    stats = TA.compile(port_expr, shp, dtype, device="cpu",
+                       rewrite=False).stats()
     ref_stats.pop("backend")
     assert stats.pop("backend") == "cuda"
     assert stats == ref_stats
+    ref_default = RA.compile(ref_expr, shp, dtype, "pallas").stats()
+    default = TA.compile(port_expr, shp, dtype, device="cpu").stats()
+    ref_default.pop("backend")
+    assert default.pop("backend") == "cuda"
+    assert default == ref_default
 
 
 def test_two_input_reconstruct_and_run_batch_stats():
@@ -127,7 +134,8 @@ def test_forced_specialization_matches_reference(specialize):
     ref_exe = RA.compile(ref_expr, f.shape, np.uint8, "pallas",
                          rewrite=False, specialize=specialize)
     exe = TA.compile(TA.opening_by_reconstruction_expr(3), f.shape,
-                     np.uint8, specialize=specialize, device="cpu")
+                     np.uint8, rewrite=False, specialize=specialize,
+                     device="cpu")
     assert [p.key for p in exe.all_plans] == [
         p.key for p in ref_exe.all_plans]
     want = RA.compile(ref_expr, f.shape, np.uint8, "xla", rewrite=False)(f)

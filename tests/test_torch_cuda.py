@@ -85,7 +85,7 @@ def test_kernels_match_plain_versions(cuda, dtype, op):
 def test_launch_errors_raise(cuda):
     x = torch.zeros((256, 512), dtype=torch.uint8, device=cuda)
     with pytest.raises(RuntimeError, match="CUDA error"):
-        # no sub-tile with a 256-pixel halo fits shared memory
+        # no block shape covers a 256-pixel halo
         TE.chain_step(x, op="erode", fuse_k=256, band_h=256)
     with pytest.raises(TypeError, match="CUDA kernels take"):
         TE.chain_step(x.to(torch.int16), op="erode", fuse_k=8, band_h=64)
