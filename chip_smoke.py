@@ -10,12 +10,13 @@ Phases, each of which makes the script exit non-zero when it fails:
 2. kernels: each of the ten kernels against its plain PyTorch version
    on the card — the four morphology kernels over uint8/uint16/int32/
    float32/float64 and both ops (with the lattice extremes, cells that
-   do not move, and the thread-strip bodies' edges: K = 1, odd K, tiles
-   narrower than a warp's 128 packed uint8 columns, widths off 128,
-   K = 32 on 64x256), the three QDT kernels over uint8/uint16/int32 (with its
-   extremes)/float32/float64 (and the thread-strip bodies' edges: K = 1,
-   odd K, widths and window origins off the uint8 body's 4-pixel words,
-   narrow cells, K = 32, r over the int32 range), the three gdt kernels
+   do not move, and the thread-strip bodies' edges: K = 1, 2 and 4,
+   odd K, tiles narrower than a warp's 128 packed uint8 columns, widths
+   off 128, K = 32 on 64x256), the three QDT kernels over uint8/
+   uint16/int32 (with its extremes)/float32/float64 (and the
+   thread-strip bodies' edges: K = 1, odd K, widths and window origins
+   off the uint8 body's 4-pixel words, narrow cells, K = 32, r over the
+   int32 range), the three gdt kernels
    over float32/float64 and λ ∈ {0, 1, 0.37} (with +inf distances and
    pad cells, and the block shape's edges: K = 1, odd K, bands off the
    16-row strips, cells narrower than a warp, +inf/NaN on window
@@ -38,7 +39,22 @@ Phases, each of which makes the script exit non-zero when it fails:
    and idle share, and where its time goes);
 5. timing: each kernel (``chain_step`` in uint8 and in float32), its
    plain version and one PyTorch yardstick call at the main path's
-   shapes, beside the bound computed from the same inputs.
+   shapes, beside the bound computed from the same inputs;
+6. serving: a request stream through ``repro_torch.serve.Service`` on
+   the card (``max_batch=8``, ``pad_quantum=64``, ``max_delay_ms=50``),
+   every bucket warmed first: 48 ragged frames of about 1024x1024
+   (blobs, basins, border objects) fanned out to nine operators, and
+   two pinned float32 images (1024x1024, and 1000x1016 padded into the
+   same bucket) serving scribble segmentations and gdt requests.  The
+   launch counts are set to 0 just before the stream at
+   pipeline depth 2 and read just after (every kernel of the served mix
+   must have been launched); the same stream then runs at depth 1.
+   Every ticket must end ``ok``, and every value must be equal across
+   the depths and to the ``"torch"`` engine on the unpadded request.
+   It prints the stream's frames/s, the service's totals (requests/s,
+   MPx/s, occupancy, cache hit rate, busy/capacity chunks), p50/p99 per
+   bucket, the launches, and the device idle share of one profiled
+   pass.
 
 The third-to-last line of standard output is the card's ``nvidia-smi``
 name and power limit, the second-to-last ``{"kernels": [...]}``, and
@@ -47,6 +63,7 @@ goes to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import collections
 import json
 import pathlib
 import subprocess
@@ -186,14 +203,17 @@ def morph_image(shape, dtype, gen):
 
 
 #: Morphology grids where the thread-strip bodies can go wrong, beside
-#: the grids above: K = 1, odd K (7) with bands off a strip's 16 rows,
-#: tiles of 8, 14, 28 and 32 columns (narrower than a warp's 128 packed
-#: uint8 columns, and off the 4-pixel words), widths that are not a
-#: multiple of 128, and K = 32 on 64x256.  The marker equals the mask on
-#: the top half of each plane, so cells there keep their flag at 0.
+#: the grids above: K = 1, 2 and 4 (a fixed chain's remainder runs at
+#: powers of two below fuse_k), odd K (7) with bands off a strip's 16
+#: rows, tiles of 8, 14, 16, 28, 32 and 48 columns (narrower than a
+#: warp's 128 packed uint8 columns, and off the 4-pixel words), widths
+#: that are not a multiple of 128, and K = 32 on 64x256.  The marker
+#: equals the mask on the top half of each plane, so cells there keep
+#: their flag at 0.
 MORPH_EDGE_GRIDS = [(1, 2, 5, 40, 8, 1), (1, 3, 21, 84, 28, 7),
                     (1, 2, 14, 42, 14, 7), (2, 2, 48, 96, 32, 16),
-                    (1, 2, 32, 200, 40, 8), (1, 2, 64, 256, 128, 32)]
+                    (1, 2, 32, 200, 40, 8), (1, 2, 64, 256, 128, 32),
+                    (1, 2, 16, 80, 16, 2), (2, 2, 32, 192, 48, 4)]
 
 
 def check_kernels(checks: Checks) -> None:
@@ -651,51 +671,52 @@ PORT_KERNELS = ("morph_u8_kernel", "morph_pixel_kernel", "qdt_pixel_kernel",
                 "qdt_u8_kernel", "gdt_kernel")
 
 
-def trace_main_path(rows, card: str) -> list:
-    """One profiled run of a few main-path cases: the device's busy and
-    idle share of the run's wall time, split into the port's kernels
-    (``PORT_KERNELS``), other device work (oracle tails, padding,
-    gathers, scatters, flags) and copies."""
+def profile_run(case: str, fn, card: str) -> dict:
+    """One profiled run of ``fn`` after one unprofiled run: the
+    device's busy and idle share of the run's wall time, split into the
+    port's kernels (``PORT_KERNELS``), other device work (oracle tails,
+    padding, gathers, scatters, flags) and copies."""
     from torch.profiler import ProfilerActivity, profile
 
-    out = []
-    for row in rows:
-        if row["case"] not in TRACED:
-            continue
-        row["run"]()
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         sync()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            row["run"]()
-            sync()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        split = {"kernels": 0.0, "other": 0.0, "copies": 0.0}
-        top: dict = {}
-        for ev in prof.events():
-            if ev.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            us = ev.time_range.elapsed_us()
-            key = ("kernels" if any(k in ev.name for k in PORT_KERNELS) else
-                   "copies" if "memcpy" in ev.name.lower() else "other")
-            split[key] += us
-            short = ev.name.replace("(anonymous namespace)::", "")
-            short = short.split("(")[0][:60]
-            top[short] = top.get(short, 0.0) + us
-        busy = sum(split.values())
-        if not busy:
-            raise AssertionError(f"trace of {row['case']}: no device time")
-        rec = dict(case=row["case"], wall_ms=wall_us / 1e3,
-                   busy_ms=busy / 1e3, idle_share=1 - busy / wall_us,
-                   split_ms={k: v / 1e3 for k, v in split.items()},
-                   top_ms=dict(sorted(((k, v / 1e3) for k, v in top.items()),
-                                      key=lambda kv: -kv[1])[:6]))
-        out.append(rec)
-        log(f"trace {rec['case']}: wall {rec['wall_ms']:.2f} ms, device "
-            f"busy {rec['busy_ms']:.2f} ms (idle share "
-            f"{rec['idle_share']:.3f}); split {json.dumps(rec['split_ms'])}; "
-            f"top {json.dumps(rec['top_ms'])} ({card})")
-    return out
+        wall_us = (time.perf_counter() - t0) * 1e6
+    split = {"kernels": 0.0, "other": 0.0, "copies": 0.0}
+    top: dict = {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = ev.time_range.elapsed_us()
+        key = ("kernels" if any(k in ev.name for k in PORT_KERNELS) else
+               "copies" if "memcpy" in ev.name.lower() else "other")
+        split[key] += us
+        short = ev.name.replace("(anonymous namespace)::", "")
+        short = short.split("(")[0][:60]
+        top[short] = top.get(short, 0.0) + us
+    busy = sum(split.values())
+    if not busy:
+        raise AssertionError(f"trace of {case}: no device time")
+    rec = dict(case=case, wall_ms=wall_us / 1e3,
+               busy_ms=busy / 1e3, idle_share=1 - busy / wall_us,
+               split_ms={k: v / 1e3 for k, v in split.items()},
+               top_ms=dict(sorted(((k, v / 1e3) for k, v in top.items()),
+                                  key=lambda kv: -kv[1])[:6]))
+    log(f"trace {rec['case']}: wall {rec['wall_ms']:.2f} ms, device "
+        f"busy {rec['busy_ms']:.2f} ms (idle share "
+        f"{rec['idle_share']:.3f}); split {json.dumps(rec['split_ms'])}; "
+        f"top {json.dumps(rec['top_ms'])} ({card})")
+    return rec
+
+
+def trace_main_path(rows, card: str) -> list:
+    """One profiled run of each ``TRACED`` main-path case."""
+    return [profile_run(row["case"], row["run"], card) for row in rows
+            if row["case"] in TRACED]
 
 
 # ---------------------------------------------------------------------------
@@ -1084,6 +1105,260 @@ def time_kernels(checks: Checks, images) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 6: a served request stream (repro_torch.serve) at the paper's size
+# ---------------------------------------------------------------------------
+
+#: The served mix: the serving example's (``examples/serve_geodesic.py``,
+#: ``SERVICE``), a 64-step geodesic dilation and the L1 QDT.
+SERVICE = (("hmax", {"h": 40}), ("dome", {"h": 40}), ("hfill", {}),
+           ("raobj", {}), ("open_rec", {"s": 8}), ("erode", {"s": 16}),
+           ("asf", {"s": 3}), ("geodesic", {"n": 64, "op": "dilate"}),
+           ("qdt_l1", {}))
+#: Frames of the stream, and the pinned image's requests of each gdt op.
+FRAMES, PINNED = 48, 8
+#: The pinned images (name: shape): one that fills its bucket and one
+#: padded into the same 1024x1024 bucket with its -inf fill.
+PINNED_SHAPES = {"pinned": (SIZE, SIZE), "ragged": (SIZE - 24, SIZE - 8)}
+#: The wrappers the served mix must launch (the row-only kernels
+#: ``qdt_chain_step`` and ``gdt_chain_step`` run on no served plan).
+SERVE_KERNELS = ("chain_step", "geodesic_chain_step", "geodesic_tile_step",
+                 "geodesic_compact_step", "qdt_tile_step",
+                 "qdt_compact_step", "gdt_tile_step", "gdt_compact_step")
+
+
+def serve_frames() -> list:
+    """The example's frames at the paper's size: blobs, basins and
+    border objects in turn, ragged (1024 - 16 (i mod 3)) x (1024 - 8 (i
+    mod 5)), uint8, made in threads (NumPy releases the interpreter lock
+    in its array loops)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.data.images import basins, blobs, border_objects
+
+    kinds = (blobs, basins, border_objects)
+
+    def frame(i):
+        return kinds[i % 3](SIZE - 16 * (i % 3), SIZE - 8 * (i % 5),
+                            np.uint8, seed=i)
+
+    with ThreadPoolExecutor(8) as pool:
+        return list(pool.map(frame, range(FRAMES)))
+
+
+def serve_requests(frames) -> list:
+    """(op, images, params) of the stream: each frame fans out to the
+    mix (the geodesic marker is the frame - 40, saturating), then each
+    pinned float32 image serves ``PINNED`` scribble segmentations and
+    ``PINNED`` gdt requests with the gdt phase's scribbles and seeds."""
+    reqs = []
+    for f in frames:
+        for op, params in SERVICE:
+            images = ((np.where(f > 40, f - 40, 0).astype(np.uint8), f)
+                      if op == "geodesic" else (f,))
+            reqs.append((op, images, params))
+    for name, hw in PINNED_SHAPES.items():
+        shape = (PINNED, *hw)
+        marks = scribbles(shape).cpu().numpy()
+        seeds = gdt_seeds(shape).cpu().numpy()
+        for k in range(PINNED):
+            reqs.append(("seg_scribble", (name, marks[k]), {}))
+            reqs.append(("gdt", (name, seeds[k]), {}))
+    return reqs
+
+
+def pinned_images() -> dict:
+    """The pinned float32 images, by name."""
+    from repro_torch.data.images import blobs
+
+    return {name: blobs(h, w, np.float32, seed=FRAMES + i)
+            for i, (name, (h, w)) in enumerate(PINNED_SHAPES.items())}
+
+
+def make_service(depth: int, requests, pinned):
+    """A service on the card (``device=None``), every bucket of the
+    stream warmed at every canonical batch size."""
+    from repro_torch.serve import Service
+
+    svc = Service(backend="cuda", max_batch=8, pad_quantum=64,
+                  max_delay_ms=50, pipeline_depth=depth,
+                  cache_capacity=512)
+    for name, image in pinned.items():
+        svc.pin(name, image)
+    seen = set()
+    for op, images, params in requests:
+        image = (pinned[images[0]] if isinstance(images[0], str)
+                 else images[0])
+        key = (op, image.shape, image.dtype)
+        if key not in seen:
+            seen.add(key)
+            svc.warmup({"op": op, "params": params, "shape": image.shape,
+                        "dtype": image.dtype, "batch": b}
+                       for b in (1, 2, 4, 8))
+    sync()
+    return svc
+
+
+def serve_pass(svc, requests) -> tuple:
+    """Submit the whole stream, flush, and wait: (tickets, wall s)."""
+    sync()
+    t0 = time.perf_counter()
+    tickets = [svc.submit(op, *images, params=params)
+               for op, images, params in requests]
+    svc.flush()
+    sync()
+    return tickets, time.perf_counter() - t0
+
+
+def torch_engine_value(op, images, params, pinned):
+    """The port's ``"torch"`` engine on the unpadded request, on the
+    card: the registry's expression for ``op``, compiled unpadded."""
+    from repro_torch.api import compile
+    from repro_torch.serve import registry
+
+    spec = registry.get(op)
+    expr = spec.build_expr(spec.canonical_params(params))
+    xs = [torch.from_numpy(pinned[im] if isinstance(im, str) else im)
+          .to(DEVICE) for im in images]
+    return compile(expr, tuple(xs[0].shape), xs[0].dtype, "torch",
+                   device=DEVICE)(*xs)
+
+
+def serve_stages(svc, requests) -> dict:
+    """Host seconds by stage over one more pass: the prepare stage
+    (``OpSpec.prepare_inputs``), staging and upload (``_stage``), the
+    bucket programs (``Executor._call_entry``: a convergent one returns
+    only when converged), waiting on the batches' events
+    (``drain_one`` less the demux) and the demux (crops, finalize);
+    ``other`` is the rest of the pass (admission, bucketing, timers)."""
+    from repro_torch.serve import registry
+
+    spent: collections.Counter = collections.Counter()
+
+    def timed(name, fn):
+        def wrapper(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                spent[name] += time.perf_counter() - t0
+        return wrapper
+
+    prepare = registry.OpSpec.prepare_inputs
+    registry.OpSpec.prepare_inputs = timed("prepare", prepare)
+    svc._stage = timed("stage", svc._stage)
+    ex = svc.executor
+    ex._call_entry = timed("program", ex._call_entry)
+    ex._deliver = timed("demux", ex._deliver)
+    ex.drain_one = timed("drain", ex.drain_one)
+    try:
+        _, wall = serve_pass(svc, requests)
+    finally:
+        registry.OpSpec.prepare_inputs = prepare
+        for obj, name in ((svc, "_stage"), (ex, "_call_entry"),
+                          (ex, "_deliver"), (ex, "drain_one")):
+            delattr(obj, name)
+    out = dict(spent, wall=wall)
+    out["event_wait"] = out.pop("drain", 0.0) - out.get("demux", 0.0)
+    out["other"] = wall - sum(v for k, v in out.items() if k != "wall")
+    return out
+
+
+def run_serving(counters, card: str) -> dict:
+    """The served stream at pipeline depth 2 (counted, timed) and 1,
+    then again at 1 and 2; every value equal across depths and to the
+    ``"torch"`` engine, no ticket with an error or degraded, every
+    kernel of the mix launched; then a pass split into host stages and
+    one profiled pass.  Fails on any of these."""
+    t0 = time.perf_counter()
+    frames = serve_frames()
+    pinned = pinned_images()
+    requests = serve_requests(frames)
+    svc2 = make_service(2, requests, pinned)
+    svc1 = make_service(1, requests, pinned)
+    log(f"serve: {len(frames)} frames, {len(requests)} requests, "
+        f"services warmed ({time.perf_counter() - t0:.1f} s)")
+
+    for fn in counters.values():
+        fn.launches = 0
+    tickets2, wall2 = serve_pass(svc2, requests)
+    launched = {k: fn.launches for k, fn in counters.items()}
+    stats = svc2.stats()
+    busy = sum(b.busy_chunks for b in svc2.metrics._buckets.values())
+    cap = sum(b.cap_chunks for b in svc2.metrics._buckets.values())
+    tickets1, wall1 = serve_pass(svc1, requests)
+    # the two depths again in the other order, for order and spread
+    walls = {"depth2": [wall2, None], "depth1": [wall1, None]}
+    walls["depth1"][1] = serve_pass(svc1, requests)[1]
+    walls["depth2"][1] = serve_pass(svc2, requests)[1]
+    missing = [k for k in SERVE_KERNELS if not launched[k]]
+    if missing:
+        raise AssertionError(f"the served stream never launched {missing}")
+
+    t0 = time.perf_counter()
+    for (op, images, params), t2, t1 in zip(requests, tickets2, tickets1,
+                                            strict=True):
+        for t in (t2, t1):
+            if t.outcome != "ok":
+                raise AssertionError(
+                    f"served {op} ended {t.outcome}: {t.error!r}")
+        got2 = t2.value if isinstance(t2.value, tuple) else (t2.value,)
+        got1 = t1.value if isinstance(t1.value, tuple) else (t1.value,)
+        want = torch_engine_value(op, images, params, pinned)
+        want = want if isinstance(want, tuple) else (want,)
+        for a, b, w in zip(got2, got1, want, strict=True):
+            if a.device.type != torch.device(DEVICE).type or not same(a, b):
+                raise AssertionError(f"served {op}: depth 2 != depth 1")
+            if not same(a, w):
+                raise AssertionError(
+                    f"served {op} != the torch engine "
+                    f"(max_abs_err={max_abs_err(a, w)})")
+    check_s = time.perf_counter() - t0
+
+    tot, cache = stats["totals"], stats["cache"]
+    out = dict(frames=FRAMES, requests=len(requests), wall_s=walls,
+               frames_per_s={k: [FRAMES / w for w in v]
+                             for k, v in walls.items()},
+               requests_per_s=tot["fps"], mpx_per_s=tot["mpx_per_s"],
+               batch_occupancy=tot["batch_occupancy"],
+               work_occupancy=tot["work_occupancy"], busy_chunks=busy,
+               cap_chunks=cap, batches=tot["batches"],
+               cache_hit_rate=cache["hit_rate"], cache=cache,
+               counters=stats["counters"],
+               launches={k: launched[k] for k in counters if launched[k]},
+               buckets={label: dict(requests=b["requests"],
+                                    batches=b["batches"],
+                                    occupancy=b["batch_occupancy"],
+                                    p50_ms=b["latency"]["p50_ms"],
+                                    p99_ms=b["latency"]["p99_ms"])
+                        for label, b in stats["buckets"].items()},
+               check_s=check_s)
+    log(f"serve: {len(requests)} requests of {FRAMES} frames equal to the "
+        f"torch engine and across depths ({check_s:.1f} s)")
+    log(f"serve totals: depth 2, 1, 1, 2: "
+        f"{wall2:.3f} / {wall1:.3f} / {walls['depth1'][1]:.3f} / "
+        f"{walls['depth2'][1]:.3f} s a pass ({FRAMES / wall2:.2f} / "
+        f"{FRAMES / wall1:.2f} / {FRAMES / walls['depth1'][1]:.2f} / "
+        f"{FRAMES / walls['depth2'][1]:.2f} frames/s); "
+        f"metrics (the first depth-2 pass): {tot['fps']:.1f} requests/s, "
+        f"{tot['mpx_per_s']:.1f} MPx/s, occupancy "
+        f"{tot['batch_occupancy']:.3f}, work occupancy "
+        f"{tot['work_occupancy']:.3f} (busy {busy} / cap {cap} chunks), "
+        f"{tot['batches']} batches, cache hit rate {cache['hit_rate']:.3f} "
+        f"({card})")
+    for label, b in out["buckets"].items():
+        log(f"serve bucket {label}: {b['requests']} requests in "
+            f"{b['batches']} batches, occupancy {b['occupancy']:.3f}, "
+            f"p50 {b['p50_ms']:.1f} ms, p99 {b['p99_ms']:.1f} ms ({card})")
+    log(f"serve launches: {json.dumps(out['launches'])} ({card})")
+    out["stages_s"] = serve_stages(svc2, requests)
+    log(f"serve host stages (s, depth 2): "
+        f"{json.dumps(out['stages_s'])} ({card})")
+    out["trace"] = profile_run("serve/depth2",
+                               lambda: serve_pass(svc2, requests), card)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -1138,6 +1413,7 @@ def main() -> int:
             f"{t['plain_ms']:.3f} ms, library {t['library_ms']:.3f} ms, "
             f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}) ({smi})")
     log(f"kernels: {checks.count} kernel-vs-plain checks equal in all")
+    serving = run_serving(counters, smi)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1146,7 +1422,8 @@ def main() -> int:
          "checks": checks.count,
          "main_path": [{k: v for k, v in r.items() if k != "run"}
                        for r in rows],
-         "traces": traces, "kernels": timing}, indent=1))
+         "traces": traces, "kernels": timing, "serving": serving},
+        indent=1))
     log(smi)
     log(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=KERNEL_META[k][1],

@@ -410,27 +410,16 @@ class Executable:
             raise AssertionError(seg.kind)
 
     def _chain2(self, x2, op, n, plan):
-        full, rem = divmod(n, plan.fuse_k)
-        for _ in range(full):
-            x2 = chain_step(x2, op=op, fuse_k=plan.fuse_k,
-                            band_h=plan.band_h, bands_per_image=plan.n_bands)
-        if rem:
-            # oracle tail on the 3-D view: per image, and the pad region
-            # continues the identity-padded semantics
-            x3 = K._unstacked(x2, self.n_images)
-            x3 = M.erode(x3, rem) if op == "erode" else M.dilate(x3, rem)
-            x2 = K._stacked(x3)
+        # the remainder past the full K-chunks runs on the kernel too, at
+        # smaller K (``chain_chunks``); the reference runs it on its oracle
+        for k in K.chain_chunks(n, plan):
+            x2 = chain_step(x2, op=op, fuse_k=k, band_h=plan.band_h,
+                            bands_per_image=plan.n_bands)
         return x2
 
     def _geodesic2(self, f2, m2, op, n, plan):
-        full, rem = divmod(n, plan.fuse_k)
-        for _ in range(full):
+        for k in K.chain_chunks(n, plan):
             f2, _ = geodesic_chain_step(
-                f2, m2, op=op, fuse_k=plan.fuse_k, band_h=plan.band_h,
+                f2, m2, op=op, fuse_k=k, band_h=plan.band_h,
                 bands_per_image=plan.n_bands)
-        if rem:
-            step = M.geodesic_erode if op == "erode" else M.geodesic_dilate
-            f3 = step(K._unstacked(f2, self.n_images),
-                      K._unstacked(m2, self.n_images), rem)
-            f2 = K._stacked(f3)
         return f2

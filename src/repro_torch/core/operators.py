@@ -294,3 +294,36 @@ def asf(f: torch.Tensor, s: int, backend: str | None = None,
 def asf_chain_length(s: int) -> int:
     """Number of elementary 3×3 filters in ASF_s (for Table 5 analogue)."""
     return sum(4 * k for k in range(1, s + 1))
+
+
+# ---------------------------------------------------------------------------
+# serving registry hooks
+# ---------------------------------------------------------------------------
+
+#: Registry hooks for ``repro_torch.serve`` (the reference's
+#: ``SERVE_OPS``, name for name): each public geodesic operator declared
+#: as data (name + param schema + expression builder) next to its
+#: implementation.  The serve registry lowers the expression and derives
+#: the prepare (unpadded marker derivation) / run (batched, compiled per
+#: bucket) / finalize (post-crop residuals, the QDT η-regularization)
+#: stages — see ``repro_torch.serve.registry``.
+SERVE_OPS = (
+    dict(name="hmax",
+         expr=lambda p: _api().hmax_expr(p["h"]),
+         params={"h": dict(type="float", required=True)}),
+    dict(name="dome",
+         expr=lambda p: _api().dome_expr(p["h"]),
+         params={"h": dict(type="float", required=True)}),
+    dict(name="hfill",
+         expr=lambda p: _api().hfill_expr(), params={}),
+    dict(name="raobj",
+         expr=lambda p: _api().raobj_expr(), params={}),
+    dict(name="open_rec",
+         expr=lambda p: _api().opening_by_reconstruction_expr(p["s"]),
+         params={"s": dict(type="int", required=True, min=1)}),
+    dict(name="asf",
+         expr=lambda p: _api().asf_expr(p["s"]),
+         params={"s": dict(type="int", required=True, min=1)}),
+    dict(name="qdt_l1",
+         expr=lambda p: _api().qdt_l1_expr(), params={}),
+)

@@ -23,16 +23,17 @@ built on it:
 
 ``gdt_reference`` is the pure-NumPy Jacobi oracle every schedule (the
 wavefront requeue scheduler, the raster sweeps, the ``"torch"``
-engine's fixpoint) is bit-exact against.  The reference's
-``SERVE_OPS`` waits for the port of serving.
+engine's fixpoint) is bit-exact against.  ``SERVE_OPS`` declares the
+transform and both composites to ``repro_torch.serve``, as the
+reference's hooks do.
 """
 from __future__ import annotations
 
 from repro_torch.api import E
 from repro_torch.gdt.reference import gdt_reference
 
-__all__ = ["gdt", "gdt_expr", "gdt_reference", "seg_hmin_expr",
-           "seg_scribble_expr"]
+__all__ = ["SERVE_OPS", "gdt", "gdt_expr", "gdt_reference",
+           "seg_hmin_expr", "seg_scribble_expr"]
 
 
 def gdt(image, seeds, lamb: float = 1.0, nu: float = 1e6, **kw):
@@ -82,3 +83,23 @@ def seg_hmin_expr(h: float, lamb: float = 1.0, nu: float = 1e6):
     hmin = E.reconstruct(E.sat_add(f, h), f, op="erode")
     seeds = E.ge(E.sub(hmin, f), float(h))
     return E.gdt(f, seeds, lamb=lamb, nu=nu)
+
+
+#: Registry hooks for ``repro_torch.serve`` (third hook source, next to
+#: ``kernels.ops.SERVE_OPS`` and ``core.operators.SERVE_OPS``).
+SERVE_OPS = (
+    dict(name="gdt",
+         expr=lambda p: gdt_expr(E.input("image"), E.input("seeds"),
+                                 lamb=p["lamb"], nu=p["nu"]),
+         params={"lamb": dict(type="float", default=1.0, min=0.0),
+                 "nu": dict(type="float", default=1e6, min=1e-6)}),
+    dict(name="seg_scribble",
+         expr=lambda p: seg_scribble_expr(lamb=p["lamb"], nu=p["nu"]),
+         params={"lamb": dict(type="float", default=1.0, min=0.0),
+                 "nu": dict(type="float", default=1e6, min=1e-6)}),
+    dict(name="seg_hmin",
+         expr=lambda p: seg_hmin_expr(p["h"], lamb=p["lamb"], nu=p["nu"]),
+         params={"h": dict(type="float", required=True, min=1e-6),
+                 "lamb": dict(type="float", default=1.0, min=0.0),
+                 "nu": dict(type="float", default=1e6, min=1e-6)}),
+)

@@ -251,6 +251,24 @@ def _active_indices(active: torch.Tensor, plan: ChainPlan):
 # ---------------------------------------------------------------------------
 
 
+def chain_chunks(n: int, plan: ChainPlan) -> list:
+    """The K of each kernel call of an ``n``-step fixed chain: ``n //
+    fuse_k`` calls of ``fuse_k``, then the remainder as powers of two
+    that divide ``band_h`` (largest first), so the whole chain runs on
+    the fused kernels (the reference runs the remainder on its oracle;
+    the outputs are equal, as the kernels pin each image's halo)."""
+    ks = [plan.fuse_k] * (n // plan.fuse_k)
+    rem = n % plan.fuse_k
+    k = 1 << max(rem.bit_length() - 1, 0)
+    while rem:
+        if k <= rem and plan.band_h % k == 0:
+            ks.append(k)
+            rem -= k
+        else:
+            k //= 2
+    return ks
+
+
 def morph_chain(f: torch.Tensor, n: int, op: str = "erode",
                 backend: str | None = None,
                 plan: ChainPlan | None = None, device=None) -> torch.Tensor:
@@ -268,16 +286,10 @@ def morph_chain(f: torch.Tensor, n: int, op: str = "erode",
         plan = plan_chain(f3.shape[1], f3.shape[2], f.dtype, n,
                           n_images=f3.shape[0])
     x2 = _stacked(_pad(f3, plan, ident_for(op, f.dtype)))
-    full, rem = divmod(n, plan.fuse_k)
-    for _ in range(full):
-        x2 = chain_step(x2, op=op, fuse_k=plan.fuse_k, band_h=plan.band_h,
+    for k in chain_chunks(n, plan):
+        x2 = chain_step(x2, op=op, fuse_k=k, band_h=plan.band_h,
                         bands_per_image=plan.n_bands)
-    x3 = _unstacked(x2, f3.shape[0])
-    if rem:
-        # tail chunk: oracle steps on the 3-D stack (axis-polymorphic,
-        # cannot leak between images)
-        x3 = M.erode(x3, rem) if op == "erode" else M.dilate(x3, rem)
-    return _crop(x3, f.shape, was_2d)
+    return _crop(_unstacked(x2, f3.shape[0]), f.shape, was_2d)
 
 
 def _compile_unary(build, f: torch.Tensor, backend, device):
@@ -344,16 +356,11 @@ def geodesic_chain(f: torch.Tensor, m: torch.Tensor, n: int,
     # mask pinning: pad the mask with the identity so pad rows absorb
     fp = _stacked(_pad(f3, plan, ident))
     mp = _stacked(_pad(m3, plan, ident))
-    full, rem = divmod(n, plan.fuse_k)
-    for _ in range(full):
-        fp, _ = geodesic_chain_step(fp, mp, op=op, fuse_k=plan.fuse_k,
+    for k in chain_chunks(n, plan):
+        fp, _ = geodesic_chain_step(fp, mp, op=op, fuse_k=k,
                                     band_h=plan.band_h,
                                     bands_per_image=plan.n_bands)
-    fp3 = _unstacked(fp, f3.shape[0])
-    if rem:
-        step = M.geodesic_erode if op == "erode" else M.geodesic_dilate
-        fp3 = step(fp3, _unstacked(mp, f3.shape[0]), rem)
-    return _crop(fp3, f.shape, was_2d)
+    return _crop(_unstacked(fp, f3.shape[0]), f.shape, was_2d)
 
 
 def scheduler_state0(plan: ChainPlan, device) -> tuple:
@@ -780,3 +787,45 @@ def gdt(image, seeds, lamb: float = 1.0, nu: float = 1e6,
     exe = api.compile(expr, image.shape, image.dtype, backend, plan=plan,
                       max_chunks=max_chunks, device=device)
     return exe(image, seeds)
+
+
+# ---------------------------------------------------------------------------
+# serving registry hooks
+# ---------------------------------------------------------------------------
+
+#: Registry hooks for ``repro_torch.serve`` (the reference's
+#: ``SERVE_OPS``, name for name): every public kernel op declared as
+#: data next to its implementation — a string name, a param schema and
+#: an *expression builder*.  ``repro_torch.serve.registry`` lowers the
+#: expression and derives the pipeline stages, pad fills and bucket
+#: identity from the lowered program.
+SERVE_OPS = (
+    dict(name="erode",
+         expr=lambda p: _api().E.erode(p["s"], _api().E.input("f")),
+         params={"s": dict(type="int", required=True, min=1)}),
+    dict(name="dilate",
+         expr=lambda p: _api().E.dilate(p["s"], _api().E.input("f")),
+         params={"s": dict(type="int", required=True, min=1)}),
+    dict(name="opening",
+         expr=lambda p: _api().E.opening(p["s"], _api().E.input("f")),
+         params={"s": dict(type="int", required=True, min=1)}),
+    dict(name="closing",
+         expr=lambda p: _api().E.closing(p["s"], _api().E.input("f")),
+         params={"s": dict(type="int", required=True, min=1)}),
+    dict(name="reconstruct",
+         expr=lambda p: _api().E.reconstruct(_api().E.input("marker"),
+                                             _api().E.input("mask"),
+                                             op=p["op"]),
+         params={"op": dict(type="str", default="dilate",
+                            choices=("erode", "dilate"))}),
+    dict(name="geodesic",
+         expr=lambda p: _api().E.geodesic(_api().E.input("marker"),
+                                          _api().E.input("mask"),
+                                          p["n"], p["op"]),
+         params={"n": dict(type="int", required=True, min=1),
+                 "op": dict(type="str", default="erode",
+                            choices=("erode", "dilate"))}),
+    dict(name="qdt",
+         expr=lambda p: _api().E.qdt(_api().E.input("f")),
+         params={}),
+)

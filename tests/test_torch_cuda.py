@@ -1,8 +1,9 @@
 """The port on an NVIDIA GPU: each CUDA kernel against its plain PyTorch
-version on the card, and ``compile()``'s ``"cuda"`` engine against its
-``"torch"`` engine.  Every test is marked ``cuda`` and skips without a
-GPU; the file imports neither jax nor the reference, so it runs on a
-machine that has only PyTorch:
+version on the card, ``compile()``'s ``"cuda"`` engine against its
+``"torch"`` engine, and a stream served by ``repro_torch.serve``.
+Every test is marked ``cuda`` and skips without a GPU; the file imports
+neither jax nor the reference, so it runs on a machine that has only
+PyTorch:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 """
@@ -281,3 +282,35 @@ def test_compile_gdt_cuda_engine_matches_torch_engine(cuda, expr):
     want = compile(e, x.shape, x.dtype, "torch")(x, m)
     assert got.device.type == "cuda" and _same(got, want)
     assert TD.gdt_tile_step.launches > before
+
+
+def test_served_stream_on_the_card(cuda):
+    """A small mixed stream through ``repro_torch.serve.Service`` on the
+    GPU at pipeline depths 1 and 2: every ticket ``ok``, every value on
+    the card, equal across depths and to the ``"torch"`` engine on the
+    unpadded frame."""
+    from repro_torch.core import operators as OPS
+    from repro_torch.serve import Service
+
+    rng = np.random.default_rng(3)
+    frames = [rng.integers(0, 255, (96 - 8 * i, 96)).astype(np.uint8)
+              for i in range(4)]
+    mix = (("hmax", {"h": 40}), ("erode", {"s": 16}), ("qdt_l1", {}))
+    results = []
+    for depth in (1, 2):
+        svc = Service(max_batch=2, max_delay_ms=1e9, pad_quantum=64,
+                      pipeline_depth=depth)
+        tickets = [svc.submit(op, f, params=p) for f in frames
+                   for op, p in mix]
+        svc.flush()
+        assert all(t.outcome == "ok" for t in tickets)
+        results.append([t.result() for t in tickets])
+    for a, b in zip(*results):
+        assert a.device.type == "cuda" and torch.equal(a, b)
+    for f, (hm, er, q) in zip(frames, zip(*[iter(results[1])] * 3)):
+        x = torch.from_numpy(f).to(cuda)
+        assert torch.equal(hm, OPS.hmax(x, 40, "torch", device=cuda))
+        assert torch.equal(er, compile(E.erode(16, E.input("f")), x.shape,
+                                       x.dtype, "torch", device=cuda)(x))
+        assert torch.equal(q, compile(qdt_l1_expr(), x.shape, x.dtype,
+                                      "torch", device=cuda)(x))

@@ -57,6 +57,9 @@ def test_no_jax_or_reference_import_in_port_sources():
     assert {PORT / "gdt" / "__init__.py", PORT / "gdt" / "reference.py",
             PORT / "kernels" / "gdt_chain.py", PORT / "opt" / "__init__.py",
             PORT / "opt" / "engine.py", PORT / "opt" / "rules.py"} <= set(files)
+    assert {PORT / "serve" / f"{name}.py" for name in (
+        "__init__", "errors", "faults", "loop", "metrics", "cache",
+        "bucketer", "registry", "executor", "service")} <= set(files)
     offenders = [(f.relative_to(REPO).as_posix(), root) for f in files
                  for root in _imported_roots(f)
                  if root in ("jax", "jaxlib", "repro")]
@@ -66,7 +69,7 @@ def test_no_jax_or_reference_import_in_port_sources():
 def test_default_device_is_the_gpu_and_raises_without_one():
     if torch.cuda.is_available():
         pytest.skip("this machine has a GPU; the default runs there")
-    from repro_torch import gdt
+    from repro_torch import gdt, serve
     from repro_torch.api import E, compile
     from repro_torch.core import operators
     from repro_torch.kernels import ops
@@ -102,6 +105,19 @@ def test_default_device_is_the_gpu_and_raises_without_one():
     # asking for the CPU runs there
     assert operators.hmax(x, 3, device="cpu").device.type == "cpu"
     assert ops.erode(x, 2, device="cpu").device.type == "cpu"
+    # the service and its executor too run on the GPU unless asked;
+    # continuous batching is not ported and says so
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.Service()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.Executor(serve.ServeMetrics())
+    assert serve.Executor(serve.ServeMetrics(),
+                          device="cpu").device.type == "cpu"
+    with pytest.raises(NotImplementedError, match="continuous"):
+        serve.Service(continuous=True, device="cpu")
+    svc = serve.Service(device="cpu", max_delay_ms=0.0)
+    assert svc.submit("erode", x.numpy(), params={"s": 2}).result(
+        ).device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_a_gpu_or_the_repo(tmp_path):

@@ -123,3 +123,24 @@ def test_float64_kernel_path_matches_own_oracle(op):
                             device="cpu")
     step = TM.geodesic_dilate if op == "dilate" else TM.geodesic_erode
     assert torch.equal(got, step(marker, m, 11))
+
+
+@pytest.mark.parametrize("n", (1, 7, 23, 47))
+def test_chain_remainder_runs_as_kernel_steps(n):
+    """A fixed chain's remainder past its full K-chunks runs as kernel
+    steps of powers of two that divide ``band_h`` (here fuse_k = 24, so
+    16 does not divide the 72-row bands), and the padded engine still
+    equals the reference's oracle."""
+    plan = TC.ChainPlan(72, 24, 128, 72, 1, 2, n_images=2)
+    ks = TO.chain_chunks(n, plan)
+    assert sum(ks) == n
+    assert all(k <= plan.fuse_k and plan.band_h % k == 0 for k in ks)
+    rng = np.random.default_rng(n)
+    f = torch.from_numpy(rng.integers(0, 256, (2, 60, 100)).astype(np.uint8))
+    got = TO.morph_chain(f, n, "erode", "cuda", plan=plan, device="cpu")
+    assert _same(RM.erode(jnp.asarray(f.numpy()), n), got)
+    marker = torch.minimum(f, torch.full_like(f, 90))
+    got = TO.geodesic_chain(marker, f, n, "dilate", "cuda", plan=plan,
+                            device="cpu")
+    assert _same(RM.geodesic_dilate(jnp.asarray(marker.numpy()),
+                                    jnp.asarray(f.numpy()), n), got)
