@@ -54,7 +54,21 @@ Phases, each of which makes the script exit non-zero when it fails:
    It prints the stream's frames/s, the service's totals (requests/s,
    MPx/s, occupancy, cache hit rate, busy/capacity chunks), p50/p99 per
    bucket, the launches, and the device idle share of one profiled
-   pass.
+   pass;
+7. continuous: the same stream through ``Service(continuous=True,
+   refill_quantum=4)`` (the rest as in 6), every bucket and slot session
+   warmed first.  The launch counts are set to 0 just before the counted
+   pass and read just after: the slot rounds' kernels (tile and compact
+   steps of the reconstruction, the QDT and the gdt) must all have been
+   launched.  Every ticket must end ``ok`` and every value equal the
+   batch path's (depth 1) and the ``"torch"`` engine's.  Then the batch
+   and the continuous service serve the stream in turn (batch,
+   continuous, continuous, batch), and a straggler burst — one
+   serpentine 1024x1024 reconstruction (hundreds of chunks) and 15 HMAX
+   frames in one bucket — must refill slots and equal the batch path.
+   It prints frames/s of both, each bucket's rounds, refills, batch and
+   work occupancy and p50/p99, the burst's chunks on both paths, and the
+   device idle share of one profiled continuous pass.
 
 The third-to-last line of standard output is the card's ``nvidia-smi``
 name and power limit, the second-to-last ``{"kernels": [...]}``, and
@@ -1175,14 +1189,16 @@ def pinned_images() -> dict:
             for i, (name, (h, w)) in enumerate(PINNED_SHAPES.items())}
 
 
-def make_service(depth: int, requests, pinned):
+def make_service(depth: int, requests, pinned, continuous: bool = False):
     """A service on the card (``device=None``), every bucket of the
-    stream warmed at every canonical batch size."""
+    stream warmed at every canonical batch size (and, continuous, every
+    refillable bucket's slot session)."""
     from repro_torch.serve import Service
 
     svc = Service(backend="cuda", max_batch=8, pad_quantum=64,
                   max_delay_ms=50, pipeline_depth=depth,
-                  cache_capacity=512)
+                  cache_capacity=512, continuous=continuous,
+                  refill_quantum=REFILL_QUANTUM)
     for name, image in pinned.items():
         svc.pin(name, image)
     seen = set()
@@ -1264,12 +1280,14 @@ def serve_stages(svc, requests) -> dict:
     return out
 
 
-def run_serving(counters, card: str) -> dict:
+def run_serving(counters, card: str) -> tuple:
     """The served stream at pipeline depth 2 (counted, timed) and 1,
     then again at 1 and 2; every value equal across depths and to the
     ``"torch"`` engine, no ticket with an error or degraded, every
     kernel of the mix launched; then a pass split into host stages and
-    one profiled pass.  Fails on any of these."""
+    one profiled pass.  Fails on any of these.  Returns the phase's
+    record and what the continuous phase reuses: the stream, the
+    services, and each request's depth-1 and ``"torch"`` engine values."""
     t0 = time.perf_counter()
     frames = serve_frames()
     pinned = pinned_images()
@@ -1296,6 +1314,7 @@ def run_serving(counters, card: str) -> dict:
         raise AssertionError(f"the served stream never launched {missing}")
 
     t0 = time.perf_counter()
+    batch_values, torch_values = [], []
     for (op, images, params), t2, t1 in zip(requests, tickets2, tickets1,
                                             strict=True):
         for t in (t2, t1):
@@ -1306,6 +1325,8 @@ def run_serving(counters, card: str) -> dict:
         got1 = t1.value if isinstance(t1.value, tuple) else (t1.value,)
         want = torch_engine_value(op, images, params, pinned)
         want = want if isinstance(want, tuple) else (want,)
+        batch_values.append(got1)
+        torch_values.append(want)
         for a, b, w in zip(got2, got1, want, strict=True):
             if a.device.type != torch.device(DEVICE).type or not same(a, b):
                 raise AssertionError(f"served {op}: depth 2 != depth 1")
@@ -1356,6 +1377,187 @@ def run_serving(counters, card: str) -> dict:
         f"{json.dumps(out['stages_s'])} ({card})")
     out["trace"] = profile_run("serve/depth2",
                                lambda: serve_pass(svc2, requests), card)
+    return out, dict(frames=frames, pinned=pinned, requests=requests,
+                     svc2=svc2, svc1=svc1, batch_values=batch_values,
+                     torch_values=torch_values)
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the same stream with continuous batching (slot engines)
+# ---------------------------------------------------------------------------
+
+#: Scheduler chunks a slot-engine round advances every occupied slot by.
+REFILL_QUANTUM = 4
+#: The kernels the continuous pass must launch (the slot rounds of the
+#: ``rec:*``, ``qdt``/``qdt_l1`` and ``gdt`` buckets; the batch path's
+#: buckets launch the others).
+CONTINUOUS_KERNELS = ("geodesic_tile_step", "geodesic_compact_step",
+                      "qdt_tile_step", "qdt_compact_step", "gdt_tile_step",
+                      "gdt_compact_step")
+#: HMAX frames of the straggler burst, beside the serpentine request.
+BURST = 15
+
+
+def serpentine(size: int = SIZE):
+    """A uint8 reconstruction (marker, mask) whose front must walk a
+    serpentine corridor: 16 corridors of 8 rows across the image, joined
+    at alternate ends, the marker one pixel at the corridor's start —
+    about 17 000 pixels of path, hundreds of scheduler chunks."""
+    mask = np.full((size, size), 10, np.uint8)
+    step = size // 16
+    for k in range(16):
+        mask[k * step:k * step + 8] = 200
+        if k < 15:
+            cols = slice(size - 8, size) if k % 2 == 0 else slice(0, 8)
+            mask[k * step:(k + 1) * step + 8, cols] = 200
+    marker = np.zeros_like(mask)
+    marker[0, 0] = 200
+    return marker, mask
+
+
+def bucket_chunks(svc) -> dict:
+    """Per bucket label: (rounds, busy chunks, capacity chunks) so far."""
+    return {label: (b.rounds, b.busy_chunks, b.cap_chunks)
+            for label, b in svc.metrics._buckets.items()}
+
+
+def run_burst(svc, requests) -> tuple:
+    """One straggler burst through ``svc``: (tickets, wall s, refills,
+    the rec:dilate bucket's rounds/busy/cap chunk deltas and the
+    latencies: the straggler's, and the others' median, mean and
+    maximum)."""
+    refills0 = svc.metrics.counters["refills"]
+    before = bucket_chunks(svc)
+    tickets, wall = serve_pass(svc, requests)
+    after = bucket_chunks(svc)
+    label = next(k for k in after
+                 if k.startswith(f"rec:dilate/{SIZE}x{SIZE}/"))
+    delta = tuple(a - b for a, b in zip(after[label],
+                                        before.get(label, (0, 0, 0))))
+    lat = [(t.t_done - t.t_enqueue) * 1e3 for t in tickets]
+    record = dict(zip(("rounds", "busy_chunks", "cap_chunks"), delta),
+                  straggler_ms=lat[0],
+                  others_p50_ms=float(np.median(lat[1:])),
+                  others_mean_ms=float(np.mean(lat[1:])),
+                  others_max_ms=max(lat[1:]))
+    return (tickets, wall, svc.metrics.counters["refills"] - refills0,
+            record)
+
+
+def run_continuous(counters, card: str, ctx: dict) -> dict:
+    """The serving phase's stream through ``Service(continuous=True)``:
+    every bucket and slot session warmed; the launch counts set to 0
+    just before the counted pass and read just after (the slot rounds'
+    kernels must all have launched); every ticket ``ok`` and equal to
+    the batch path's (depth 1) and the ``"torch"`` engine's value; then
+    passes of the batch and the continuous service in turn, a straggler
+    burst (a serpentine reconstruction and ``BURST`` HMAX frames in one
+    bucket: refills must happen, values equal to the batch path's), and
+    one profiled continuous pass.  Fails on any of these."""
+    requests, pinned = ctx["requests"], ctx["pinned"]
+    frames = ctx["frames"]
+    t0 = time.perf_counter()
+    svc = make_service(2, requests, pinned, continuous=True)
+    log(f"continuous: service warmed, slot sessions included "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    for fn in counters.values():
+        fn.launches = 0
+    tickets, wall_c = serve_pass(svc, requests)
+    launched = {k: fn.launches for k, fn in counters.items()}
+    stats = svc.stats()
+    busy = sum(b.busy_chunks for b in svc.metrics._buckets.values())
+    cap = sum(b.cap_chunks for b in svc.metrics._buckets.values())
+    refills = {key.label(): eng.refills for key, eng in svc._engines.items()}
+    missing = [k for k in CONTINUOUS_KERNELS if not launched[k]]
+    if missing:
+        raise AssertionError(f"the continuous pass never launched {missing}")
+    refilled = sorted({label.split("/")[0] for label in refills})
+    t0 = time.perf_counter()
+    for (op, _, _), t, batch, want in zip(
+            requests, tickets, ctx["batch_values"], ctx["torch_values"],
+            strict=True):
+        if t.outcome != "ok":
+            raise AssertionError(
+                f"continuous {op} ended {t.outcome}: {t.error!r}")
+        got = t.value if isinstance(t.value, tuple) else (t.value,)
+        for a, b, w in zip(got, batch, want, strict=True):
+            if a.device.type != torch.device(DEVICE).type or not same(a, b):
+                raise AssertionError(f"continuous {op} != the batch path")
+            if not same(a, w):
+                raise AssertionError(
+                    f"continuous {op} != the torch engine "
+                    f"(max_abs_err={max_abs_err(a, w)})")
+    check_s = time.perf_counter() - t0
+
+    # batch, continuous, continuous, batch: order and spread in one phase
+    walls = {"batch": [serve_pass(ctx["svc2"], requests)[1]],
+             "continuous": [wall_c]}
+    walls["continuous"].append(serve_pass(svc, requests)[1])
+    walls["batch"].append(serve_pass(ctx["svc2"], requests)[1])
+
+    marker, mask = serpentine()
+    burst = [("reconstruct", (marker, mask), {"op": "dilate"})] + [
+        ("hmax", (f,), {"h": 40}) for f in frames[:BURST]]
+    b_tickets, b_wall, b_refills, b_chunks = run_burst(svc, burst)
+    p_tickets, p_wall, _, p_chunks = run_burst(ctx["svc1"], burst)
+    if b_refills <= 0:
+        raise AssertionError("the straggler burst refilled no slot")
+    for (op, _, _), t, p in zip(burst, b_tickets, p_tickets, strict=True):
+        if t.outcome != "ok" or p.outcome != "ok":
+            raise AssertionError(f"burst {op} ended {t.outcome}/{p.outcome}")
+        if not same(t.value, p.value):
+            raise AssertionError(f"burst {op}: continuous != the batch path")
+
+    tot = stats["totals"]
+    out = dict(
+        requests=len(requests), wall_s=walls,
+        frames_per_s={k: [FRAMES / w for w in v] for k, v in walls.items()},
+        requests_per_s=tot["fps"], batch_occupancy=tot["batch_occupancy"],
+        work_occupancy=tot["work_occupancy"], busy_chunks=busy,
+        cap_chunks=cap, counters=stats["counters"], refilled_ops=refilled,
+        launches={k: launched[k] for k in counters if launched[k]},
+        buckets={label: dict(requests=b["requests"], batches=b["batches"],
+                             rounds=b["rounds"],
+                             refills=refills.get(label, 0),
+                             batch_occupancy=b["batch_occupancy"],
+                             work_occupancy=b["work_occupancy"],
+                             p50_ms=b["latency"]["p50_ms"],
+                             p99_ms=b["latency"]["p99_ms"])
+                 for label, b in stats["buckets"].items()},
+        burst=dict(requests=len(burst), refills=b_refills,
+                   continuous=dict(wall_s=b_wall, **b_chunks),
+                   batch=dict(wall_s=p_wall, **p_chunks)),
+        check_s=check_s)
+    log(f"continuous: {len(requests)} requests equal to the batch path and "
+        f"the torch engine ({check_s:.1f} s); slot engines for "
+        f"{', '.join(refilled)}")
+    log(f"continuous totals: batch, continuous, continuous, batch: "
+        f"{walls['batch'][0]:.3f} / {walls['continuous'][0]:.3f} / "
+        f"{walls['continuous'][1]:.3f} / {walls['batch'][1]:.3f} s a pass "
+        f"({FRAMES / walls['batch'][0]:.2f} / "
+        f"{FRAMES / walls['continuous'][0]:.2f} / "
+        f"{FRAMES / walls['continuous'][1]:.2f} / "
+        f"{FRAMES / walls['batch'][1]:.2f} frames/s); metrics (the counted "
+        f"continuous pass): {tot['fps']:.1f} requests/s, batch occupancy "
+        f"{tot['batch_occupancy']:.3f}, work occupancy "
+        f"{tot['work_occupancy']:.3f} (busy {out['busy_chunks']} / cap "
+        f"{out['cap_chunks']} chunks), refills "
+        f"{stats['counters']['refills']} ({card})")
+    for label, b in out["buckets"].items():
+        log(f"continuous bucket {label}: {b['requests']} requests, "
+            f"{b['rounds']} rounds, {b['refills']} refills, "
+            f"{b['batches']} batches, batch occupancy "
+            f"{b['batch_occupancy']:.3f}, work occupancy "
+            f"{b['work_occupancy']:.3f}, p50 {b['p50_ms']:.1f} ms, p99 "
+            f"{b['p99_ms']:.1f} ms ({card})")
+    log(f"continuous launches: {json.dumps(out['launches'])} ({card})")
+    log(f"continuous burst (1 serpentine + {BURST} HMAX, one bucket): "
+        f"{b_refills} refills; continuous {b_wall:.3f} s, "
+        f"{json.dumps(b_chunks)}; batch (depth 1) {p_wall:.3f} s, "
+        f"{json.dumps(p_chunks)} ({card})")
+    out["trace"] = profile_run("serve/continuous",
+                               lambda: serve_pass(svc, requests), card)
     return out
 
 
@@ -1413,7 +1615,9 @@ def main() -> int:
             f"{t['plain_ms']:.3f} ms, library {t['library_ms']:.3f} ms, "
             f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}) ({smi})")
     log(f"kernels: {checks.count} kernel-vs-plain checks equal in all")
-    serving = run_serving(counters, smi)
+    serving, ctx = run_serving(counters, smi)
+    continuous = run_continuous(counters, smi, ctx)
+    del ctx
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1422,7 +1626,8 @@ def main() -> int:
          "checks": checks.count,
          "main_path": [{k: v for k, v in r.items() if k != "run"}
                        for r in rows],
-         "traces": traces, "kernels": timing, "serving": serving},
+         "traces": traces, "kernels": timing, "serving": serving,
+         "continuous": continuous},
         indent=1))
     log(smi)
     log(json.dumps({"kernels": [

@@ -20,11 +20,18 @@ groups exactly as the reference does.
 The program is the one ``compile`` lowered: the optimizer's canonical
 graph by default, the source graph with ``rewrite=False``.  The
 reference's static verifier is not ported yet.
+
+A program of one convergence-driven segment (``refillable``) also runs
+as a continuous-batching *slot session* (``slot_session``): a resident
+stack whose slots are admitted, advanced in bounded scheduler rounds and
+harvested one by one — what ``repro_torch.serve``'s ``SlotEngine`` runs.
 """
 from __future__ import annotations
 
 import functools
+from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.api.lower import Program, eval_pointwise
@@ -32,8 +39,9 @@ from repro_torch.core import morphology as M
 from repro_torch.core import operators as OPS
 from repro_torch.core.backend import dtype_name
 from repro_torch.kernels import ops as K
-from repro_torch.kernels.common import fill_where, ident_for
+from repro_torch.kernels.common import fill_where, ident_for, qdt_acc_dtype
 from repro_torch.kernels.erode_chain import chain_step
+from repro_torch.kernels.gdt_chain import D_IDENT, I_IDENT, S_IDENT
 from repro_torch.kernels.geodesic_chain import geodesic_chain_step
 
 #: pad-fill name → the op whose lattice identity it is
@@ -45,6 +53,49 @@ _NEED_FILL = {"erode": "hi", "dilate": "lo"}
 
 def _fill_value(fill: str, dtype):
     return ident_for(_FILL_OP[fill], dtype)
+
+
+class SlotSession(NamedTuple):
+    """Entry points for continuous batching over one resident device
+    *session* (see :meth:`Executable.slot_session`).
+
+    The session owns a padded stack whose ``n_slots`` row blocks are
+    independent images under the requeue scheduler; slots park
+    (activity cleared: no work) and are re-armed in place.  The state is
+    a tuple of device planes followed by the scheduler's
+    :class:`~repro_torch.kernels.ops.SchedulerState` fields.
+
+    ``init()``
+        fresh state: every slot parked, planes filled with the
+        program's absorbing pad identities.
+    ``admit(state, slot, *canonical) -> state``
+        write one request's canonical (H, W) device inputs into
+        ``slot``'s row block (padded with the program's fills, in place),
+        re-arm its activity rows and zero its chunk counter and
+        ``exhausted`` flag — the initial condition a solo run of that
+        image starts from.
+    ``round(state) -> (state, finished, exhausted)``
+        run at most ``n_chunks`` scheduler chunks over every active
+        slot.  ``finished`` is a host (n_slots,) bool array — the
+        slot's active set is empty (converged, budget-truncated or
+        parked); ``exhausted`` flags slots cut off by the per-image
+        chunk budget (degraded partial fixpoints).
+    ``extract(state) -> outputs``
+        cropped (n_slots, H, W) run outputs (program output order):
+        views into the resident stack, which the next ``admit``
+        overwrites.
+    ``chunks_of(state) -> (n_slots,) int32``
+        the host counter of scheduler chunks each slot's image has
+        consumed.
+    """
+
+    n_slots: int
+    n_chunks: int
+    init: Any
+    admit: Any
+    round: Any
+    extract: Any
+    chunks_of: Any
 
 
 def _seg_need_fill(seg) -> str:
@@ -91,6 +142,7 @@ class Executable:
         self.seg_plans = tuple(seg_plans) if seg_plans else None
         self.rewrite_trace = tuple(rewrite_trace)
         self._mask_cache: dict = {}
+        self._sessions: dict = {}
         seg_key = (tuple((idxs, p.key) for idxs, p in self.seg_plans)
                    if self.seg_plans is not None else None)
         # every field that can change what a call computes or returns;
@@ -149,6 +201,192 @@ class Executable:
             all_ok = all_ok & vec
         return (outs, all_ok, sum(b for b, _ in util),
                 sum(c for _, c in util))
+
+    @property
+    def refillable(self) -> bool:
+        """True when this program can run as a continuous-batching slot
+        session: one convergence-driven segment (reconstruct, QDT or
+        gdt) under one ``"cuda"`` plan on the wavefront schedule,
+        compiled for a 3-D batch.  Fixed chains have no stragglers to
+        refill behind; multi-segment and specialized programs re-band
+        between plans, which leaves no per-slot state to resume; the
+        raster gdt sweeps whole images (no per-slot activity grid)."""
+        prog = self.program
+        return (self.plan is not None
+                and self.seg_plans is None
+                and not self.was_2d
+                and len(prog.segments) == 1
+                and prog.segments[0].kind in ("reconstruct", "qdt", "gdt")
+                and self.plan.schedule == "wavefront")
+
+    def slot_session(self, n_chunks: int) -> SlotSession:
+        """Build (or fetch) the :class:`SlotSession` for continuous
+        batching with rounds of ``n_chunks`` scheduler chunks.  Requires
+        :attr:`refillable`.
+
+        Bit-exactness: a slot admitted mid-flight starts from the state a
+        fresh solo batch would stage for it (the same absorbing pads, all
+        its cells active, a zero chunk counter; for the QDT zero r/d
+        rows), and the scheduler's per-image independence (image-pinned
+        halos, inactive cells skipped, parked slots never gathered) makes
+        later rounds apply the chunks a solo run would — so harvested
+        outputs equal solo execution bit for bit.  Budget-truncated slots
+        are flagged exhausted and equal a solo run under
+        ``max_chunks=budget``.  The functions run on the current stream
+        of the executable's device.
+        """
+        cached = self._sessions.get(n_chunks)
+        if cached is not None:
+            return cached
+        if not self.refillable:
+            raise ValueError(
+                f"{self!r} is not refillable (continuous batching needs a "
+                "single convergent segment on the cuda engine)")
+        if n_chunks < 1:
+            raise ValueError("n_chunks must be >= 1")
+
+        prog = self.program
+        seg = prog.segments[0]
+        plan = self.plan
+        dev = self.device
+        n, h, w = self.n_images, self.height, self.width
+        hp = plan.height_pad
+        fills = dict(self._exec_groups[0][2])  # slot -> pad fill name
+
+        def plane(value, dtype):
+            return torch.full((n * hp, plan.width_pad), value, dtype=dtype,
+                              device=dev)
+
+        def padded(img, fill: str):
+            return K._pad(img[None], plan, _fill_value(fill, img.dtype))[0]
+
+        def rows(slot):
+            return slice(slot * hp, (slot + 1) * hp)
+
+        def arm(sched, slot):
+            """``sched`` with ``slot``'s cells active and its counter and
+            flag cleared — new arrays: a round never shares them."""
+            active, chunks, exhausted, active_h = sched
+            bands = slice(slot * plan.n_bands, (slot + 1) * plan.n_bands)
+            active = active.clone()
+            active[bands] = 1
+            cells = plan.n_bands * plan.n_tiles
+            active_h = active_h.copy()
+            active_h[slot * cells:(slot + 1) * cells] = 1
+            chunks, exhausted = chunks.copy(), exhausted.copy()
+            chunks[slot], exhausted[slot] = 0, False
+            return K.SchedulerState(active, chunks, exhausted, active_h)
+
+        def sched0():
+            # all slots parked: no active cells, nothing costs work
+            return K.SchedulerState(
+                torch.zeros((plan.total_bands, plan.n_tiles),
+                            dtype=torch.int32, device=dev),
+                np.zeros((n,), np.int32), np.zeros((n,), bool),
+                np.zeros((plan.total_tiles,), np.int32))
+
+        def crops(vals: dict):
+            return tuple(K._crop3(vals[s], n, h, w)
+                         for s in prog.run_outputs)
+
+        def split(state, n_planes):
+            return state[:n_planes], K.SchedulerState(*state[n_planes:])
+
+        if seg.kind == "reconstruct":
+            op = seg.param("op")
+            budget = self._budget_rec(plan)
+            f_slot, m_slot = seg.srcs
+
+            def init():
+                return (plane(_fill_value(fills[f_slot], self.dtype),
+                              self.dtype),
+                        plane(_fill_value(fills[m_slot], self.dtype),
+                              self.dtype), *sched0())
+
+            def admit(state, slot, marker, mask):
+                (fp, mp), sched = split(state, 2)
+                fp[rows(slot)] = padded(marker, fills[f_slot])
+                mp[rows(slot)] = padded(mask, fills[m_slot])
+                return (fp, mp, *arm(sched, slot))
+
+            def round_(state):
+                (fp, mp), sched = split(state, 2)
+                fp, _, _, _, finished, sched = K._scheduled_reconstruct(
+                    fp, mp, plan, op, n_chunks, False, resume=sched,
+                    budget=budget)
+                return (fp, mp, *sched), finished.numpy(), sched.exhausted
+
+            def extract(state):
+                return crops({seg.dsts[0]: state[0]})
+
+            n_planes = 2
+        elif seg.kind == "gdt":
+            budget = self._budget_rec(plan)
+            i_slot, s_slot = seg.srcs
+            lamb, nu = seg.param("lamb"), seg.param("nu")
+
+            def init():
+                # parked slots hold the kernels' halo identities: +inf
+                # distance, zero image, -1 seed marker
+                return (plane(D_IDENT, self.dtype),
+                        plane(I_IDENT, self.dtype),
+                        plane(S_IDENT, self.dtype), *sched0())
+
+            def admit(state, slot, image, seeds):
+                (d, ip, sp), sched = split(state, 3)
+                d0, i_t, s_t = K.gdt_stage(padded(image, fills[i_slot]),
+                                           padded(seeds, fills[s_slot]), nu)
+                d[rows(slot)], ip[rows(slot)], sp[rows(slot)] = d0, i_t, s_t
+                return (d, ip, sp, *arm(sched, slot))
+
+            def round_(state):
+                (d, ip, sp), sched = split(state, 3)
+                d, finished, sched = K._scheduled_gdt(
+                    d, ip, sp, plan, lamb, n_chunks, resume=sched,
+                    budget=budget)
+                return (d, ip, sp, *sched), finished.numpy(), sched.exhausted
+
+            def extract(state):
+                return crops({seg.dsts[0]: state[0]})
+
+            n_planes = 3
+        else:  # qdt
+            budget = self._budget_qdt(plan)
+            x_slot = seg.srcs[0]
+
+            def init():
+                return (plane(_fill_value(fills[x_slot], self.dtype),
+                              self.dtype),
+                        plane(0, qdt_acc_dtype(self.dtype)),
+                        plane(0, torch.int32), *sched0())
+
+            def admit(state, slot, f):
+                (x, r, d), sched = split(state, 3)
+                x[rows(slot)] = padded(f, fills[x_slot])
+                r[rows(slot)] = 0
+                d[rows(slot)] = 0
+                return (x, r, d, *arm(sched, slot))
+
+            def round_(state):
+                (x, r, d), sched = split(state, 3)
+                x, r, d, finished, sched = K._scheduled_qdt(
+                    x, plan, n_chunks, rp=r, dp=d, resume=sched,
+                    budget=budget)
+                return (x, r, d, *sched), finished.numpy(), sched.exhausted
+
+            def extract(state):
+                return crops({seg.dsts[0]: state[2], seg.dsts[1]: state[1]})
+
+            n_planes = 3
+
+        def chunks_of(state):
+            return state[n_planes + 1]
+
+        session = SlotSession(n_slots=n, n_chunks=n_chunks, init=init,
+                              admit=admit, round=round_, extract=extract,
+                              chunks_of=chunks_of)
+        self._sessions[n_chunks] = session
+        return session
 
     @property
     def all_plans(self) -> tuple:

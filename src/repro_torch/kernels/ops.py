@@ -38,7 +38,9 @@ centres back.  The reference loop runs on the device
 (``lax.while_loop``); here it is a host loop that reads the activity
 grid back once per chunk — one synchronisation per chunk — and decides
 from that copy whether to continue, whether to compact, and whether
-the cached mask patches still match the active set.
+the cached mask patches still match the active set.  It can run in
+bounded rounds resumed from a :class:`SchedulerState`, under a
+per-image chunk budget (the continuous-batching slot rounds).
 """
 from __future__ import annotations
 
@@ -363,18 +365,39 @@ def geodesic_chain(f: torch.Tensor, m: torch.Tensor, n: int,
     return _crop(_unstacked(fp, f3.shape[0]), f.shape, was_2d)
 
 
-def scheduler_state0(plan: ChainPlan, device) -> tuple:
-    """Fresh scheduler state: ``(active, img_chunks)`` with every cell
-    active (an int32 (total_bands, n_tiles) grid on ``device``) and no
-    chunks applied (a host (n_images,) counter)."""
-    return (torch.ones((plan.total_bands, plan.n_tiles), dtype=torch.int32,
-                       device=device),
-            np.zeros((plan.n_images,), np.int32))
+class SchedulerState(NamedTuple):
+    """Resumable scheduler state: the reference's ``(active, img_chunks,
+    exhausted)``, then the host copy of ``active`` that the loop decides
+    from, so a resumed round starts without a device read.
+
+    ``active`` is the (total_bands, n_tiles) int32 grid on the device;
+    ``img_chunks`` (int32) and ``exhausted`` (bool) are host (n_images,)
+    arrays; ``active_host`` is ``active`` flattened, on the host.  A state
+    whose grid is all zero (see ``Executable.slot_session``) describes a
+    stack of parked slots that cost no work until a slot's rows are
+    re-armed.  A round never writes into the state it resumes."""
+
+    active: torch.Tensor
+    img_chunks: np.ndarray
+    exhausted: np.ndarray
+    active_host: np.ndarray
+
+
+def scheduler_state0(plan: ChainPlan, device) -> SchedulerState:
+    """Fresh scheduler state: every cell active, no chunks applied,
+    nothing exhausted."""
+    return SchedulerState(
+        torch.ones((plan.total_bands, plan.n_tiles), dtype=torch.int32,
+                   device=device),
+        np.zeros((plan.n_images,), np.int32),
+        np.zeros((plan.n_images,), bool),
+        np.ones((plan.total_tiles,), np.int32))
 
 
 def _drive_scheduler(plan: ChainPlan, data, device, *, full_step,
                      compact_step=None, gather_const=None, max_chunks: int,
-                     with_stats: bool = False):
+                     with_stats: bool = False, resume=None,
+                     budget: int | None = None):
     """Active-cell requeue driver loop (the paper's Alg. 4 work queue),
     for the chain whose state ``data`` lives on ``device``.
 
@@ -390,20 +413,41 @@ def _drive_scheduler(plan: ChainPlan, data, device, *, full_step,
     it.  ``flags`` come back as a (total_bands, n_tiles) int32 grid.
 
     Returns (data, chunks, active_cell_sum, active_per_chunk,
-    img_converged, (active, img_chunks)); ``img_converged`` is True
-    where an image's cells all went inactive within ``max_chunks``.
-    The loop makes the reference's decisions from a host copy of the
-    activity grid, read once per chunk.
+    img_converged, state); ``img_converged`` is True where an image's
+    cells all went inactive within ``max_chunks``, and ``state`` is the
+    :class:`SchedulerState` to resume from.  The loop makes the
+    reference's decisions from a host copy of the activity grid, read
+    once per chunk.
+
+    **Resumable rounds** (continuous batching): ``resume`` takes a
+    returned ``state`` and runs at most ``max_chunks`` more chunks from
+    exactly where it stopped; the per-image chunk counters (the QDT's
+    distance base) carry across rounds.  The kernels pin halos at image
+    boundaries and skip inactive cells, so an image's chunk sequence
+    depends only on its own activity rows: re-arming one slot's rows
+    replays the chunks a solo run of that image would take.  Every call
+    starts with an empty ``gather_const`` cache — between rounds a slot
+    may have been re-armed with a new mask under the same active set.
+
+    ``budget`` bounds each image's chunk count across rounds: an image
+    that reaches ``budget`` chunks while still active has its cells
+    cleared (in the host copy and on the device) — the truncation a solo
+    run under ``max_chunks=budget`` performs — and is flagged in
+    ``state.exhausted``.
     """
     total = plan.total_tiles
     cap = plan.compact_capacity
     use_compact = (compact_step is not None and plan.compact_threshold > 0.0
                    and cap < total)
     with_cache = use_compact and gather_const is not None
-    active, img_chunks = scheduler_state0(plan, device)
-    active_h = np.ones((total,), np.int32)
+    active, img_chunks, exhausted, active_h = (
+        resume if resume is not None else scheduler_state0(plan, device))
+
+    def img_active(grid_h):
+        return grid_h.reshape(plan.n_images, -1).any(1)
+
     per_chunk = np.zeros((max_chunks if with_stats else 0,), np.int32)
-    ckey = cval = None
+    ckey = cval = None  # never matches: the first compact chunk gathers
     it = asum = 0
     while active_h.any() and it < max_chunks:
         count = int(active_h.sum())
@@ -419,24 +463,36 @@ def _drive_scheduler(plan: ChainPlan, data, device, *, full_step,
             data, flags = full_step(data, active, base)
         if with_stats:
             per_chunk[it] = count
-        img_chunks = img_chunks + active_h.reshape(plan.n_images, -1).any(1)
+        img_chunks = img_chunks + img_active(active_h)
         active = _dilate_active(flags, plan)
         active_h = active.reshape(-1).cpu().numpy()  # the chunk's one sync
+        if budget is not None:
+            cut = (img_chunks >= budget) & img_active(active_h)
+            if cut.any():
+                exhausted = exhausted | cut
+                keep = np.repeat(~cut, total // plan.n_images)
+                active_h = active_h * keep
+                active = torch.from_numpy(active_h.reshape(
+                    plan.total_bands, plan.n_tiles)).to(device)
         asum += count
         it += 1
-    img_converged = ~active_h.reshape(plan.n_images, -1).any(1)
+    img_converged = ~img_active(active_h)
     return (data, it, asum, torch.from_numpy(per_chunk),
-            torch.from_numpy(img_converged), (active, img_chunks))
+            torch.from_numpy(img_converged),
+            SchedulerState(active, img_chunks, exhausted, active_h))
 
 
 def _scheduled_reconstruct(fp, mp, plan: ChainPlan, op: str,
-                           max_chunks: int, with_stats: bool):
+                           max_chunks: int, with_stats: bool, resume=None,
+                           budget: int | None = None):
     """Reconstruction's step functions for :func:`_drive_scheduler`.
 
     ``fp``/``mp`` are stacked (TOTAL_H, W_pad) arrays.  Tiled plans run
     the 2-D grid kernel for full chunks, row-only plans the row-band
     kernel; compaction is patch-based either way, and the mask's
     patches go through the driver's ``gather_const`` cache.
+    ``resume``/``budget`` pass through to :func:`_drive_scheduler` (the
+    slot rounds of ``Executable.slot_session``).
     """
     ident = ident_for(op, fp.dtype)
     geo = dict(op=op, fuse_k=plan.fuse_k, band_h=plan.band_h)
@@ -462,7 +518,7 @@ def _scheduled_reconstruct(fp, mp, plan: ChainPlan, op: str,
     return _drive_scheduler(
         plan, fp, fp.device, full_step=full_step, compact_step=compact_step,
         gather_const=gather_const, max_chunks=max_chunks,
-        with_stats=with_stats,
+        with_stats=with_stats, resume=resume, budget=budget,
     )
 
 
@@ -546,22 +602,28 @@ def reconstruct_with_stats(f: torch.Tensor, m: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _scheduled_qdt(fp, plan: ChainPlan, max_chunks: int):
+def _scheduled_qdt(fp, plan: ChainPlan, max_chunks: int, rp=None, dp=None,
+                   resume=None, budget: int | None = None):
     """QDT's step functions for :func:`_drive_scheduler`.
 
     ``fp`` is the stacked (TOTAL_H, W_pad) image, padded with the
     erosion identity.  Returns the final (eroded, residual, distance)
     stacked planes, the per-image convergence vector and the scheduler
     state; the residual plane is ``qdt_acc_dtype`` (float32 for float
-    images, int32 otherwise).  Each chunk copies the host ``base`` to
-    the device: broadcast over a band's tiles for the tile kernel, one
-    entry per workspace slot for the compact kernel.
+    images, int32 otherwise).  ``rp``/``dp`` take mid-flight residual
+    and distance planes (zeros when None) for bounded rounds with
+    ``resume``/``budget``: the resumed per-image chunk counters keep the
+    distance offsets consistent across rounds.  Each chunk copies the
+    host ``base`` to the device: broadcast over a band's tiles for the
+    tile kernel, one entry per workspace slot for the compact kernel.
     """
     k = plan.fuse_k
     ident = ident_for("erode", fp.dtype)
-    rp = torch.zeros(fp.shape, dtype=qdt_acc_dtype(fp.dtype),
-                     device=fp.device)
-    dp = torch.zeros(fp.shape, dtype=torch.int32, device=fp.device)
+    if rp is None:
+        rp = torch.zeros(fp.shape, dtype=qdt_acc_dtype(fp.dtype),
+                         device=fp.device)
+    if dp is None:
+        dp = torch.zeros(fp.shape, dtype=torch.int32, device=fp.device)
 
     def full_step(data, active, base):
         x, r, d = data
@@ -597,7 +659,8 @@ def _scheduled_qdt(fp, plan: ChainPlan, max_chunks: int):
 
     (x, r, d), _, _, _, img_conv, state = _drive_scheduler(
         plan, (fp, rp, dp), fp.device, full_step=full_step,
-        compact_step=compact_step, max_chunks=max_chunks)
+        compact_step=compact_step, max_chunks=max_chunks, resume=resume,
+        budget=budget)
     return x, r, d, img_conv, state
 
 
@@ -642,7 +705,7 @@ def gdt_stage(ip: torch.Tensor, sp: torch.Tensor, nu: float):
 
 
 def _scheduled_gdt(dp, ip, sp, plan: ChainPlan, lamb: float,
-                   max_chunks: int):
+                   max_chunks: int, resume=None, budget: int | None = None):
     """gdt's step functions for :func:`_drive_scheduler` (the wavefront
     schedule).
 
@@ -650,7 +713,7 @@ def _scheduled_gdt(dp, ip, sp, plan: ChainPlan, lamb: float,
     :func:`gdt_stage`.  Only the distance plane evolves; the image and
     seed planes are chunk-invariant, so their compact-workspace patches
     go through the driver's ``gather_const`` cache as one pair.  Returns
-    (d, img_converged, state).
+    (d, img_converged, state), resumable as ``_scheduled_qdt``'s.
     """
     geo = dict(lamb=lamb, fuse_k=plan.fuse_k, band_h=plan.band_h)
 
@@ -676,7 +739,8 @@ def _scheduled_gdt(dp, ip, sp, plan: ChainPlan, lamb: float,
 
     d, _, _, _, img_conv, state = _drive_scheduler(
         plan, dp, dp.device, full_step=full_step, compact_step=compact_step,
-        gather_const=gather_const, max_chunks=max_chunks)
+        gather_const=gather_const, max_chunks=max_chunks, resume=resume,
+        budget=budget)
     return d, img_conv, state
 
 

@@ -33,6 +33,11 @@ One stage per module, as in the reference:
     the typed error taxonomy, the seeded fault-injection harness (the
     sites dispatch/drain/poison/deadline/budget) and the deterministic
     timer loop with its injectable clocks — copies of the reference's.
+``continuous``
+    continuous batching: :class:`SlotEngine` keeps a resident
+    :class:`~repro_torch.api.executable.SlotSession` per refillable
+    bucket and refills slots the moment their image converges, while
+    stragglers keep iterating (``Service(continuous=True)``).
 ``service``
     :class:`Service` (admission, deadlines, backpressure, adaptive pad
     quantum, ``pin``/``unpin``, ``warmup``, ``stats``, ``bench_rows``),
@@ -40,13 +45,13 @@ One stage per module, as in the reference:
 
 ``Service()`` runs on the GPU (``device=None``) and raises without one;
 the tests pass ``device="cpu"``, where the ``"cuda"`` engine's kernel
-wrappers run their plain PyTorch versions.  The reference's continuous
-batching (``continuous=True``, ``SlotEngine``) is not ported yet.
+wrappers run their plain PyTorch versions.
 """
 from repro_torch.serve import errors, faults, registry
 from repro_torch.serve.bucketer import (BucketKey, Ticket, bucket_hw,
                                         canonical_batch)
 from repro_torch.serve.cache import CacheEntry, CompiledProgramCache
+from repro_torch.serve.continuous import SlotEngine
 from repro_torch.serve.errors import (DeadlineExceededError, ExecutorError,
                                       InvalidRequestError,
                                       NonFiniteInputError,
@@ -81,6 +86,7 @@ __all__ = [
     "ServeMetrics",
     "Service",
     "ServiceClosedError",
+    "SlotEngine",
     "Ticket",
     "UnsupportedDtypeError",
     "VirtualClock",

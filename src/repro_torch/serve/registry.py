@@ -110,7 +110,7 @@ class OpSpec:
     name: str
     params: Mapping[str, ParamSpec]
     expr_builder: Callable | None = None   # params dict -> Expr
-    run: Callable | None = None    # custom: (inputs, params, backend)
+    run: Callable | None = None    # custom: (inputs, params, backend, plan)
     arity: int = 1           # image inputs per request (user-facing)
     n_inputs: int | None = None  # canonical inputs after prepare (None=arity)
     n_outputs: int = 1
@@ -119,6 +119,7 @@ class OpSpec:
     pad_fills: Callable | None = None      # params dict -> ("hi"|"lo", ...)
     prepare: Callable | None = None        # custom per-request stage
     finalize: Callable | None = None       # custom: (out, images, params)
+    plan_builder: Callable | None = None   # custom: (n, h, w, dtype, params)
 
     def canonical_params(self, params: Mapping | None) -> tuple:
         """Validate + normalize params into a sorted hashable tuple

@@ -1,6 +1,6 @@
 """The serving front-end: admit → bucket → compile-or-hit → execute,
 as an event-driven engine with a fault-tolerant request lifecycle (port
-of ``repro.serve.service``, its default batch path).
+of ``repro.serve.service``).
 
 ``Service`` ties the pieces together: the :mod:`registry` validates ops
 and params and lowers each request's expression, the :mod:`bucketer`
@@ -10,16 +10,18 @@ packing: ops with identical compiled run phases co-batch), the
 ``repro_torch.api`` compile cache uses — to compiled bucket programs +
 their :class:`ChainPlan`, and the :mod:`executor` runs the
 double-buffered pipeline on its CUDA stream and demuxes results,
-applying each request's own finalize stage.
+applying each request's own finalize stage.  With ``continuous=True``,
+refillable buckets (one convergence-driven segment on the ``"cuda"``
+engine, wavefront schedule) run on a resident
+:class:`~repro_torch.serve.continuous.SlotEngine` instead: converged
+slots are harvested and refilled mid-flight while stragglers keep
+iterating.
 
 The service runs on ``device`` (``None`` is the GPU, which raises
 without one; the CPU must be asked for with ``device="cpu"``) with the
 engine ``backend`` (``"cuda"``, the default and the reference's
 ``"pallas"``, or ``"torch"``, the reference's ``"xla"``).  Staging pads
 on the host in NumPy; the executor copies the stack to the device.
-The reference's continuous batching (``continuous=True``, its
-``SlotEngine``) is not ported yet: asking for it raises
-``NotImplementedError``.
 
 Event-driven core: the service never sleeps and never spawns a thread —
 every deferred action is a timer on a :class:`~repro_torch.serve.loop
@@ -60,7 +62,8 @@ Robustness contract (as in the reference, ``docs/ROBUSTNESS.md``):
   ``submit()``: the executor retries the batch with backoff, then
   bisect-quarantines so only poisoned requests fail (typed) while
   healthy co-batched requests complete bit-exactly — on the same
-  engine and device, never falling back to another;
+  engine and device, never falling back to another; the slot engine
+  evicts its whole session into the same ladder;
 * **partial convergence** (scheduler watchdog) is delivered as a
   degraded result (``Ticket.degraded``), counted per bucket and in the
   lifecycle counters.
@@ -81,6 +84,7 @@ import functools
 import time
 
 import numpy as np
+import torch
 
 from repro_torch import api
 from repro_torch.core.backend import (as_dtype, canonicalize_backend,
@@ -92,6 +96,7 @@ from repro_torch.serve.bucketer import (BucketKey, BucketQueue,
                                         canonical_batch, check_payload,
                                         pad_fill)
 from repro_torch.serve.cache import CacheEntry, CompiledProgramCache
+from repro_torch.serve.continuous import SlotEngine
 from repro_torch.serve.errors import (DeadlineExceededError,
                                       InvalidRequestError, QueueFullError,
                                       ServiceClosedError,
@@ -116,6 +121,7 @@ class Service:
         max_retries: int = 2,
         retry_backoff_ms: float = 0.0,
         continuous: bool = False,
+        refill_quantum: int = 4,
         high_water: int | None = None,
         adaptive_quantum: bool = False,
         adapt_every: int = 16,
@@ -133,13 +139,8 @@ class Service:
             raise ValueError("high_water must be >= 1 (or None to disable)")
         if adapt_every < 1:
             raise ValueError("adapt_every must be >= 1")
-        if continuous:
-            raise NotImplementedError(
-                "Service(continuous=True): continuous batching (the "
-                "reference's SlotEngine and Executable.slot_session) is "
-                "not ported yet; it is the next slice of serving "
-                "(ROADMAP.md, queue 1, item 10). Use continuous=False, "
-                "the batch path")
+        if refill_quantum < 1:
+            raise ValueError("refill_quantum must be >= 1")
         self.backend = canonicalize_backend(backend)
         self.device = resolve_device(device)
         self.max_batch = max_batch
@@ -147,6 +148,8 @@ class Service:
         self.max_queue = max_queue
         self.default_deadline_ms = default_deadline_ms
         self.high_water = high_water
+        self.continuous = continuous
+        self.refill_quantum = refill_quantum
         self.adaptive_quantum = adaptive_quantum
         self.adapt_every = adapt_every
         self.loop = loop if loop is not None else EventLoop(clock)
@@ -164,6 +167,7 @@ class Service:
                                  backoff_s=retry_backoff_ms / 1e3,
                                  sleep=sleep, device=self.device)
         self._queue = BucketQueue(max_batch, max_delay_ms / 1e3)
+        self._engines: dict[BucketKey, SlotEngine] = {}
         self._assets: dict[str, np.ndarray] = {}
         self._flush_timers: dict[BucketKey, object] = {}
         self._quantum: dict[str, int] = {}  # adaptive per-sig overrides
@@ -313,28 +317,33 @@ class Service:
 
     def poll(self) -> None:
         """Pump the engine once: fire due timers (bucket flushes,
-        request expiries).
+        request expiries) and advance every slot engine one round.
 
         Part of the robustness contract: ``poll`` never raises — batch
         failures resolve into typed per-ticket errors via the
         executor's recovery ladder.
         """
         self.loop.run_due()
+        self._step_engines()
 
     def pump(self) -> bool:
-        """One cooperative engine turn: timers, then one pipeline drain.
-        Returns True when any progress was made (the asyncio
-        front-end's trampoline unit)."""
+        """One cooperative engine turn: timers, one engine round each,
+        one pipeline drain.  Returns True when any progress was made
+        (the asyncio front-end's trampoline unit)."""
         progress = self.loop.run_due() > 0
+        progress = self._step_engines() or progress
         if self.executor.inflight:
             progress = self.executor.drain_one() or progress
         return progress
 
     def flush(self) -> None:
-        """Launch every queued bucket and drain the whole pipeline."""
-        while len(self._queue):
+        """Launch every queued bucket, run every slot engine to empty
+        and drain the whole pipeline."""
+        while True:
             for key in self._queue.keys():
                 self._launch(key)
+            if not self._step_engines() and not len(self._queue):
+                break
         self.executor.drain_all()
 
     def close(self) -> None:
@@ -349,14 +358,21 @@ class Service:
         return self._closed
 
     def work_pending(self) -> bool:
-        """True while anything queued or in the executor pipeline still
-        needs pumping."""
-        return bool(len(self._queue) or self.executor.inflight)
+        """True while anything queued, resident in a slot engine, or in
+        the executor pipeline still needs pumping."""
+        return bool(len(self._queue) or self.executor.inflight
+                    or any(e.occupied for e in self._engines.values()))
 
     def next_deadline(self) -> float | None:
         """Earliest armed timer (flush/expiry) on the service clock —
         what the asyncio front-end turns into a real wakeup."""
         return self.loop.next_deadline()
+
+    def _step_engines(self) -> bool:
+        progress = False
+        for engine in list(self._engines.values()):
+            progress = engine.step() or progress
+        return progress
 
     def _complete(self, ticket: Ticket) -> None:
         """Drive the engine until ``ticket`` resolves (Ticket.result)."""
@@ -365,6 +381,7 @@ class Service:
             if ticket._queued:
                 self._launch(ticket._bucket_key)
                 progress = True
+            progress = self._step_engines() or progress
             progress = self.executor.drain_one() or progress
             if not progress:
                 break
@@ -411,13 +428,21 @@ class Service:
             self.metrics.count("backpressure_flushes")
             self._launch(key)
             if len(self._queue) >= before:
-                break  # nothing launched: don't spin
+                break  # engine full / everything shed: don't spin
 
     def _launch(self, key: BucketKey) -> None:
-        """Launch one bucket as one canonical batch.  Never raises."""
+        """Launch one bucket: into its slot engine when continuous and
+        refillable, else as one canonical batch.  Never raises."""
         timer = self._flush_timers.pop(key, None)
         if timer is not None:
             timer.cancel()
+        engine = self._engines.get(key)
+        if engine is None and self.continuous:
+            engine = self._spawn_engine(key)
+        if engine is not None:
+            engine.pull()
+            self._rearm_flush(key)
+            return
         requests = self._queue.pop(key)
         for req in requests:
             req.ticket._queued = False
@@ -455,6 +480,25 @@ class Service:
             return
         self.executor.dispatch(entry, key, requests, n_slots, stacked,
                                runner=runner)
+
+    def _spawn_engine(self, key: BucketKey) -> SlotEngine | None:
+        """Build the bucket's slot engine if its program is refillable
+        (one convergent segment on the ``"cuda"`` engine); None routes
+        to the batch path.  Compile failures fall through — the batch
+        path's ladder reports them."""
+        oldest = self._queue.oldest(key)
+        if oldest is None or oldest.info.expr is None:
+            return None
+        try:
+            entry = self._entry_for(key, oldest.info, self.max_batch,
+                                    warm=False)
+        except Exception:
+            return None
+        if entry.exe is None or not entry.exe.refillable:
+            return None
+        engine = SlotEngine(self, key, oldest.info, entry)
+        self._engines[key] = engine
+        return engine
 
     def _shed_expired(self, requests):
         """Deadline shedding at launch: typed errors, no device time."""
@@ -580,17 +624,23 @@ class Service:
         spec = registry.get(info.sig[1])  # ("custom", name, canon)
         return lookup(
             cache_key,
-            functools.partial(self._build_custom, spec, info.sig[2],
-                              cache_key),
+            functools.partial(self._build_custom, spec, info.sig[2], key,
+                              n_slots, cache_key),
         )
 
-    def _build_custom(self, spec, canon: tuple,
-                      cache_key: tuple) -> CacheEntry:
+    def _build_custom(self, spec, canon: tuple, key: BucketKey,
+                      n_slots: int, cache_key: tuple) -> CacheEntry:
+        h, w = key.hw
+        plan = None
+        if self.backend == "cuda" and spec.plan_builder is not None:
+            plan = spec.plan_builder(n_slots, h, w, np.dtype(key.dtype),
+                                     dict(canon))
+
         def call(*inputs):
-            out = spec.run(inputs, canon, self.backend)
+            out = spec.run(inputs, canon, self.backend, plan)
             return out if isinstance(out, tuple) else (out,)
 
-        return CacheEntry(fn=call, plan=None, key=cache_key)
+        return CacheEntry(fn=call, plan=plan, key=cache_key)
 
     def _stage(self, info, key: BucketKey, requests,
                n_slots: int) -> Staged:
@@ -622,7 +672,8 @@ class Service:
         to ``max_batch``).  Each entry is compiled *and* executed once on
         a sentinel-only stack, so first real traffic pays for neither a
         compile nor a kernel build; warm builds are excluded from
-        hit/miss stats.
+        hit/miss stats.  With ``continuous=True`` a refillable bucket's
+        slot session (init/admit/round/extract) runs once too.
         """
         for e in entries:
             spec = registry.get(e["op"])
@@ -638,6 +689,28 @@ class Service:
                 # variant for expression programs)
                 self.executor.run_now(
                     entry, self._stage(info, key, [], n_slots))
+            if self.continuous and info.expr is not None:
+                self._warm_session(key, info)
+
+    def _warm_session(self, key: BucketKey, info) -> None:
+        """Run a refillable bucket's slot-session entry points once on a
+        sentinel slot, on the executor's stream, so the first continuous
+        round pays for no kernel build or first-call set-up."""
+        entry = self._entry_for(key, info, self.max_batch, warm=True)
+        if entry.exe is None or not entry.exe.refillable:
+            return
+        session = entry.exe.slot_session(self.refill_quantum)
+        dtype = np.dtype(key.dtype)
+        with self.executor.on_stream():
+            sentinels = tuple(
+                torch.full(key.hw, pad_fill(dtype, info.fills[j]).item(),
+                           dtype=as_dtype(dtype), device=self.device)
+                for j in range(info.n_inputs))
+            state = session.admit(session.init(), 0, *sentinels)
+            state, _, _ = session.round(state)
+            session.extract(state)
+        if self.executor.stream is not None:
+            self.executor.stream.synchronize()
 
     def stats(self) -> dict:
         """Metrics summary (buckets/totals/counters/cache/faults),
@@ -653,10 +726,11 @@ class Service:
                 + self.metrics.counter_rows())
 
     def pending(self) -> int:
-        """Requests awaiting a result in the queue (in-flight executor
-        batches are not counted — they are already past admission/
-        launch)."""
-        return len(self._queue)
+        """Requests awaiting a result: queued plus resident in slot
+        engines (in-flight executor batches are not counted — they are
+        already past admission/launch)."""
+        return len(self._queue) + sum(e.n_occupied
+                                      for e in self._engines.values())
 
 
 class AsyncService:

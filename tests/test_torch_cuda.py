@@ -314,3 +314,92 @@ def test_served_stream_on_the_card(cuda):
                                        x.dtype, "torch", device=cuda)(x))
         assert torch.equal(q, compile(qdt_l1_expr(), x.shape, x.dtype,
                                       "torch", device=cuda)(x))
+
+
+def _slot_requests(kind, rng):
+    """Canonical requests of one bucket: the first a slow one."""
+    if kind == "reconstruct":
+        reqs = []
+        for i in range(5):
+            f = blobs(128, 160, np.float32, seed=i)
+            m = np.where(f > 0.3, f - np.float32(0.3), 0).astype(np.float32)
+            reqs.append((m, f))
+        snake = np.full((128, 160), 0.1, np.float32)
+        snake[::2] = 0.9
+        snake[1::4, -1] = snake[3::4, 0] = 0.9
+        marker = np.zeros_like(snake)
+        marker[0, 0] = 0.9
+        reqs[0] = (marker, snake)
+        return E.reconstruct(E.input("m"), E.input("f"), op="dilate"), reqs
+    if kind == "qdt":
+        reqs = [(blobs(128, 160, np.uint8, seed=i),) for i in range(5)]
+        return E.qdt(E.input("f")), reqs
+    img = blobs(128, 160, np.float32, seed=9)
+    reqs = []
+    for i in range(5):
+        seeds = np.zeros(img.shape, np.float32)
+        seeds[rng.integers(0, 128), rng.integers(0, 160)] = 1.0
+        reqs.append((img, seeds))
+    return E.gdt(E.input("image"), E.input("seeds")), reqs
+
+
+@pytest.mark.parametrize("kind", ("reconstruct", "qdt", "gdt"))
+def test_slot_session_on_the_card_equals_the_batch_path(cuda, kind):
+    """A slot session on the GPU: requests admitted into slots as they
+    free up, in rounds of 2 chunks, equal a solo batch of each request on
+    the batch path, and the session's rounds launch the tile kernel."""
+    expr, reqs = _slot_requests(kind, np.random.default_rng(4))
+    dtype = reqs[0][0].dtype
+    exe = compile(expr, (3, 128, 160), dtype)
+    assert exe.refillable
+    session = exe.slot_session(2)
+    tile = {"reconstruct": TG.geodesic_tile_step, "qdt": TQ.qdt_tile_step,
+            "gdt": TD.gdt_tile_step}[kind]
+    before = tile.launches
+    state = session.init()
+    queue, slots, got = list(range(len(reqs))), [None] * 3, {}
+    for _ in range(10_000):
+        for slot in range(3):
+            if slots[slot] is None and queue:
+                i = queue.pop(0)
+                state = session.admit(state, slot, *(
+                    torch.from_numpy(x).to(cuda) for x in reqs[i]))
+                slots[slot] = i
+        if all(s is None for s in slots):
+            break
+        state, finished, exhausted = session.round(state)
+        assert not exhausted.any()
+        outs = session.extract(state)
+        for slot, i in enumerate(slots):
+            if i is not None and finished[slot]:
+                got[i] = tuple(o[slot].clone() for o in outs)
+                slots[slot] = None
+    assert sorted(got) == list(range(len(reqs)))
+    assert tile.launches > before
+    solo = compile(expr, (1, 128, 160), dtype)
+    for i, x in enumerate(reqs):
+        want = solo.run_batch(*(torch.from_numpy(a)[None].to(cuda)
+                                for a in x))
+        for a, b in zip(want, got[i]):
+            assert b.device.type == "cuda" and _same(b, a[0])
+
+
+def test_continuous_service_on_the_card_equals_the_batch_path(cuda):
+    """``Service(continuous=True)`` on the GPU: a straggler and fast HMAX
+    frames in one bucket — refills happen, every ticket ``ok`` and equal
+    to the batch path's value."""
+    from repro_torch.serve import Service
+
+    expr, reqs = _slot_requests("reconstruct", np.random.default_rng(5))
+    results = {}
+    for cont in (False, True):
+        svc = Service(continuous=cont, refill_quantum=2, max_batch=2,
+                      max_delay_ms=1e9, pad_quantum=64)
+        tickets = [svc.submit("reconstruct", m, f) for m, f in reqs]
+        svc.flush()
+        assert all(t.outcome == "ok" for t in tickets)
+        results[cont] = [t.result() for t in tickets]
+        if cont:
+            assert svc.stats()["counters"]["refills"] > 0
+    for a, b in zip(results[False], results[True]):
+        assert b.device.type == "cuda" and torch.equal(a, b)

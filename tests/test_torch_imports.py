@@ -59,7 +59,8 @@ def test_no_jax_or_reference_import_in_port_sources():
             PORT / "opt" / "engine.py", PORT / "opt" / "rules.py"} <= set(files)
     assert {PORT / "serve" / f"{name}.py" for name in (
         "__init__", "errors", "faults", "loop", "metrics", "cache",
-        "bucketer", "registry", "executor", "service")} <= set(files)
+        "bucketer", "registry", "executor", "service",
+        "continuous")} <= set(files)
     offenders = [(f.relative_to(REPO).as_posix(), root) for f in files
                  for root in _imported_roots(f)
                  if root in ("jax", "jaxlib", "repro")]
@@ -105,19 +106,23 @@ def test_default_device_is_the_gpu_and_raises_without_one():
     # asking for the CPU runs there
     assert operators.hmax(x, 3, device="cpu").device.type == "cpu"
     assert ops.erode(x, 2, device="cpu").device.type == "cpu"
-    # the service and its executor too run on the GPU unless asked;
-    # continuous batching is not ported and says so
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        serve.Service()
+    # the service (continuous too) and its executor run on the GPU
+    # unless asked
+    for cont in (False, True):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve.Service(continuous=cont)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.Executor(serve.ServeMetrics())
     assert serve.Executor(serve.ServeMetrics(),
                           device="cpu").device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="continuous"):
-        serve.Service(continuous=True, device="cpu")
     svc = serve.Service(device="cpu", max_delay_ms=0.0)
     assert svc.submit("erode", x.numpy(), params={"s": 2}).result(
         ).device.type == "cpu"
+    svc = serve.Service(device="cpu", max_delay_ms=0.0, continuous=True)
+    assert svc.submit("hmax", x.float().numpy(), params={"h": 0.5}).result(
+        ).device.type == "cpu"
+    assert [type(e).__name__ for e in svc._engines.values()] == [
+        "SlotEngine"]
 
 
 def test_chip_smoke_fails_without_a_gpu_or_the_repo(tmp_path):

@@ -365,7 +365,7 @@ def test_cache_lru_eviction(rng):
 def test_dispatch_failure_resolves_tickets(rng):
     """A custom op whose run raises: both tickets resolve with a typed
     PoisonedRequestError (the cause preserved), nothing escapes."""
-    def bad_run(*args):  # the reference passes a plan; the port does not
+    def bad_run(inputs, params, backend, plan):
         raise RuntimeError("boom")
 
     for reg in (RR, TR):

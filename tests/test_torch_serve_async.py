@@ -311,17 +311,6 @@ def test_adaptive_quantum(rng, quantum, shapes, counter, after):
     pair.check()
 
 
-def test_continuous_batching_is_not_ported():
-    with pytest.raises(NotImplementedError, match="continuous"):
-        TS.Service(continuous=True, device="cpu")
-    loop = asyncio.new_event_loop()
-    try:
-        with pytest.raises(NotImplementedError, match="continuous"):
-            TS.AsyncService(continuous=True, device="cpu", loop=loop)
-    finally:
-        loop.close()
-
-
 # ---------------------------------------------------------------------------
 # faults: the chaos matrix and seeded schedules give the same outcomes
 # ---------------------------------------------------------------------------
