@@ -68,7 +68,19 @@ Phases, each of which makes the script exit non-zero when it fails:
    frames in one bucket — must refill slots and equal the batch path.
    It prints frames/s of both, each bucket's rounds, refills, batch and
    work occupancy and p50/p99, the burst's chunks on both paths, and the
-   device idle share of one profiled continuous pass.
+   device idle share of one profiled continuous pass;
+8. verifier: ``python -m repro_torch.analysis.lint``'s sweep at "full"
+   on the card, then every executable the earlier phases compiled (the
+   main path, every served bucket, the slot sessions') at "full" — no
+   ERROR anywhere — and, for every launch they make, the launch model's
+   block shape and every window against the library's geometry exports
+   (``*_geometry``, ``*_windows``), field for field.  It prints the
+   counts and the mean ms of a "fast" verification per compile;
+9. baselines: van Herk/Gil-Werman erosion (``repro_torch.baselines``)
+   at s = 1 … 91 beside the ``"cuda"`` engine's chain of s steps, at
+   N=8 × 1024² in uint8 and float64 — every result equal — and the
+   naive per-filter chain at n = 64 beside the fused one.  It prints
+   where each is faster; no gain is claimed.
 
 The third-to-last line of standard output is the card's ``nvidia-smi``
 name and power limit, the second-to-last ``{"kernels": [...]}``, and
@@ -1561,6 +1573,131 @@ def run_continuous(counters, card: str, ctx: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the static verifier on the card's executables
+# ---------------------------------------------------------------------------
+
+
+def run_verifier(card: str) -> dict:
+    """(a) the lint sweep at "full" on the card; (b) every executable the
+    earlier phases compiled (the main path, every served bucket and the
+    slot sessions' executables: the compile cache) at "full"; (c) the
+    launch model's shape and every window of each launch that (a) and
+    (b) met against the library's geometry exports.  Fails on any ERROR
+    or mismatch.  Returns the phase's counts."""
+    from repro_torch.analysis import indexmaps as IM
+    from repro_torch.analysis.lint import iter_registry_cases, run_lint
+    from repro_torch.analysis.verifier import verify_executable
+    from repro_torch.api import compile
+    from repro_torch.api.compile import cached_executables
+
+    earlier = list(cached_executables())
+    t0 = time.perf_counter()
+    lint = run_lint(level="full", device=None)
+    lint_s = time.perf_counter() - t0
+    if not lint.ok:
+        raise AssertionError(f"verifier: the lint sweep has errors:\n{lint}")
+    cases = list(iter_registry_cases())
+    lint_exes = [compile(expr, shape3, dtype, backend, verify=False)
+                 for _, expr, shape3, dtype, backend in cases]
+
+    findings = collections.Counter()
+    for f in lint.findings:
+        findings[f"{f.check}/{f.severity}"] += 1
+    fast_s = []
+    for exe in earlier:
+        t0 = time.perf_counter()
+        verify_executable(exe, level="fast")
+        fast_s.append(time.perf_counter() - t0)
+        report = verify_executable(exe, level="full")
+        for f in report.findings:
+            findings[f"{f.check}/{f.severity}"] += 1
+        if not report.ok:
+            raise AssertionError(f"verifier: {report}")
+
+    launches = list(dict.fromkeys(
+        launch for exe in earlier + lint_exes
+        for launch in IM.executable_launches(exe)))
+    n_windows = 0
+    for launch in launches:
+        bad, n = IM.compare_with_library(launch)
+        if bad:
+            raise AssertionError("verifier: the launch model disagrees with "
+                                 "the library:\n" + "\n".join(map(str, bad)))
+        n_windows += n
+    out = {"lint_cases": len(cases),
+           "lint_s": lint_s, "executables": len(earlier),
+           "findings": dict(findings), "geometries": len(launches),
+           "windows": n_windows,
+           "kernels": sorted({l.kernel for l in launches}),
+           "fast_verify_ms": 1e3 * float(np.mean(fast_s)) if fast_s else None}
+    log(f"verifier: lint {out['lint_cases']} cases at full, no ERROR "
+        f"({lint_s:.1f} s); {len(earlier)} main-path and served executables "
+        f"at full, no ERROR; findings by class {dict(findings) or 'none'}; "
+        f"{len(launches)} launch geometries and {n_windows} windows equal "
+        f"to the library's ({len(out['kernels'])} kernels); a fast "
+        f"verification {out['fast_verify_ms']:.3f} ms a compile ({card})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the paper's baselines beside the fused chains
+# ---------------------------------------------------------------------------
+
+#: vhgw's half-widths: windows 3×3 to 183×183, the paper's uint8 crossover
+VHGW_S = (1, 3, 7, 15, 31, 63, 91)
+#: elementary filters of the naive per-filter chain
+NAIVE_N = 64
+
+
+def run_baselines(images, card: str) -> dict:
+    """vhgw erosion against the ``"cuda"`` engine's ``E.erode`` chain of
+    the same s (s elementary 3×3 steps give the (2s+1)² window) at N=8 ×
+    1024² in uint8 and float64, and the naive chain at n = 64 beside the
+    fused one.  Every vhgw result must equal the chain's.  No gain is
+    claimed: it prints the crossover."""
+    from repro_torch.api import E, compile
+    from repro_torch.baselines import naive, vhgw
+
+    out = {}
+    inputs = {"uint8": images["uint8"],
+              "float64": images["float32"].to(torch.float64)}
+    for name, x in inputs.items():
+        rows = []
+        for s in VHGW_S:
+            exe = compile(E.erode(s, E.input("f")), tuple(x.shape), x.dtype,
+                          "cuda", device=DEVICE)
+            if not same(vhgw.erode(x, s), exe(x)):
+                raise AssertionError(f"baselines: vhgw != chain at s={s} "
+                                     f"({name})")
+            rows.append(dict(s=s, window=2 * s + 1,
+                             vhgw_ms=cuda_ms(lambda: vhgw.erode(x, s), 5),
+                             chain_ms=cuda_ms(lambda: exe(x), 5)))
+        chain_wins = [r["s"] for r in rows if r["chain_ms"] < r["vhgw_ms"]]
+        vhgw_wins = [r["s"] for r in rows if r["chain_ms"] >= r["vhgw_ms"]]
+        fused = compile(E.erode(NAIVE_N, E.input("f")), tuple(x.shape),
+                        x.dtype, "cuda", device=DEVICE)
+        want = fused(x)
+        sync()
+        t0 = time.perf_counter()
+        got = naive.chain(x, NAIVE_N, device=DEVICE)
+        naive_ms = (time.perf_counter() - t0) * 1e3
+        if not same(got, want):
+            raise AssertionError(f"baselines: naive chain != fused ({name})")
+        out[name] = dict(rows=rows, chain_faster_at=chain_wins,
+                         vhgw_faster_at=vhgw_wins, naive_ms=naive_ms,
+                         fused_ms=cuda_ms(lambda: fused(x), 5))
+        for r in rows:
+            log(f"baselines {name} s={r['s']} ({r['window']}x{r['window']}):"
+                f" vhgw {r['vhgw_ms']:.3f} ms, chain {r['chain_ms']:.3f} ms")
+        log(f"baselines {name}: vhgw equal to the chain at every s; chain "
+            f"faster at s {chain_wins}, vhgw at s {vhgw_wins} (crossover: "
+            f"{'none' if not vhgw_wins else min(vhgw_wins)}); naive chain "
+            f"n={NAIVE_N} {naive_ms:.2f} ms (host clock, a sync a filter) "
+            f"against fused {out[name]['fused_ms']:.3f} ms ({card})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -1618,6 +1755,8 @@ def main() -> int:
     serving, ctx = run_serving(counters, smi)
     continuous = run_continuous(counters, smi, ctx)
     del ctx
+    verifier = run_verifier(smi)
+    baselines = run_baselines(images, smi)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1627,7 +1766,8 @@ def main() -> int:
          "main_path": [{k: v for k, v in r.items() if k != "run"}
                        for r in rows],
          "traces": traces, "kernels": timing, "serving": serving,
-         "continuous": continuous},
+         "continuous": continuous, "verifier": verifier,
+         "baselines": baselines},
         indent=1))
     log(smi)
     log(json.dumps({"kernels": [

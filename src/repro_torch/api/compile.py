@@ -11,9 +11,10 @@ compiles the source graph verbatim), then lowers the *canonical* graph
 reference's planner: a single-class program (all fixed chains, or all
 convergent) shares one plan; a mixed program is specialized per
 contiguous fixed/convergent group (``specialize=None`` auto,
-``True``/``False`` force), with a re-band between groups.  The
-reference's static verifier (``verify=``) is not ported yet (ROADMAP.md,
-queue 1, item 8).
+``True``/``False`` force), with a re-band between groups.  A cache-miss
+build then goes through the static verifier
+(``repro_torch.analysis``) when ``verify=`` or ``REPRO_VERIFY`` asks for
+it, as in the reference.
 
 Executables are cached in a module-level LRU keyed on the canonical
 graph plus the binding ``(shape, dtype, backend, plan, max_chunks,
@@ -51,7 +52,8 @@ _shared_hits = 0
 
 
 def compile(expr: Expr, shape, dtype, backend: str | None = None, *,
-            plan=None, max_chunks: int | None = None, rewrite: bool = True,
+            plan=None, max_chunks: int | None = None,
+            verify: bool | None = None, rewrite: bool = True,
             specialize: bool | None = None, device=None) -> Executable:
     """Lower ``expr`` and bind it to a concrete (shape, dtype, backend,
     device).
@@ -67,6 +69,14 @@ def compile(expr: Expr, shape, dtype, backend: str | None = None, *,
     per-group specialization); ``max_chunks`` caps the reconstructions'
     K-chunk iterations.  ``rewrite`` (default on) runs the expression
     optimizer first; ``rewrite=False`` compiles the source graph verbatim.
+
+    ``verify`` controls the static verifier hook
+    (``repro_torch.analysis.verifier:verify_executable`` at the cheap
+    "fast" level, cache-miss builds only): ``None`` defers to the
+    ``REPRO_VERIFY`` environment toggle (the test suite turns it on),
+    ``True``/``False`` force it.  An ERROR-severity finding raises
+    ``repro_torch.analysis.findings:VerificationError`` before the
+    executable enters the cache.
     """
     if isinstance(expr, Pipe):
         raise TypeError(
@@ -115,6 +125,13 @@ def compile(expr: Expr, shape, dtype, backend: str | None = None, *,
 
     exe = _build(canonical, shape3, was_2d, dtype, backend, plan,
                  max_chunks, specialize, device, trace)
+    if verify or verify is None:
+        # local import: analysis sits above api in the layering
+        from repro_torch.analysis.verifier import (verify_executable,
+                                                   verify_on_compile)
+
+        if verify or verify_on_compile():
+            verify_executable(exe, level="fast").raise_if_errors()
     with _lock:
         _cache[key] = exe
         _sources.setdefault(key, set()).add(expr)
@@ -239,6 +256,13 @@ def cache_stats() -> dict:
             "misses": _misses,
             "hit_rate": _hits / total if total else 0.0,
         }
+
+
+def cached_executables() -> tuple:
+    """Every executable the compile cache holds, least recently used
+    first (``chip_smoke.py`` verifies each at the "full" level)."""
+    with _lock:
+        return tuple(_cache.values())
 
 
 def clear_cache() -> None:

@@ -18,8 +18,7 @@ groups exactly as the reference does.
 ``"xla"`` engine) — bit-exact with the ``"cuda"`` engine.
 
 The program is the one ``compile`` lowered: the optimizer's canonical
-graph by default, the source graph with ``rewrite=False``.  The
-reference's static verifier is not ported yet.
+graph by default, the source graph with ``rewrite=False``.
 
 A program of one convergence-driven segment (``refillable``) also runs
 as a continuous-batching *slot session* (``slot_session``): a resident

@@ -30,7 +30,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 
-#: C signature of every launcher: (argtypes, source file).
+#: C signature of every launcher and geometry export: (argtypes, source
+#: file).
 LAUNCHERS = {
     "chain_step_launch": (
         [_I, _I, _P, _P, _I, _I, _I, _I, _I, _P], "morph_chain.cu"),
@@ -62,6 +63,15 @@ LAUNCHERS = {
     "gdt_compact_step_launch": (
         [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _P],
         "gdt_chain.cu"),
+    # the launchers' geometry without a launch (repro_torch.analysis.
+    # indexmaps holds its model against these): the shape of one call,
+    # then every window of it
+    "morph_geometry": ([_I] * 9 + [_P], "morph_chain.cu"),
+    "morph_windows": ([_I] * 9 + [_P], "morph_chain.cu"),
+    "qdt_geometry": ([_I] * 8 + [_P], "qdt_chain.cu"),
+    "qdt_windows": ([_I] * 8 + [_P], "qdt_chain.cu"),
+    "gdt_geometry": ([_I] * 8 + [_D, _P], "gdt_chain.cu"),
+    "gdt_windows": ([_I] * 8 + [_D, _P], "gdt_chain.cu"),
 }
 
 _libs: dict = {}

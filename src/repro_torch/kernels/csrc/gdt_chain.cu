@@ -206,7 +206,7 @@ __global__ void __launch_bounds__(max_threads<MODE>())
   constexpr int P = kRows;
   const int K = g.k;
   const int cell = blockIdx.x;
-  const Window w = morph::locate(g);
+  const Window w = morph::locate(g, cell, blockIdx.y);
   const T* d = static_cast<const T*>(g.f);
   const T* im = static_cast<const T*>(g.m);
   T* out = static_cast<T*>(g.out);
@@ -407,50 +407,95 @@ bool pick_shape(Geo& g, Shape* out) {
   return best_warps > 0;
 }
 
+// The instance (kUnit, kReg, kIwin) and block shape of a launch of T:
+// lamb == 0 takes kUnit; float32 takes kReg wherever a shape fits its 12
+// warps (K up to 31), else kIwin, as float64 always does (its weights
+// would need twice the registers).  Sets g.tb, g.tw, g.n_sub_c and
+// *n_sub.
+template <typename T>
+cudaError_t shape_typed(Geo& g, double lamb, int* mode, Shape* sh,
+                        int* n_sub) {
+  bool ok;
+  if (lamb == 0.0) {
+    *mode = kUnit;
+    ok = pick_shape<T, kUnit>(g, sh);
+  } else {
+    ok = false;
+    if constexpr (sizeof(T) == 4) {
+      *mode = kReg;
+      ok = pick_shape<T, kReg>(g, sh);
+    }
+    if (!ok) {
+      *mode = kIwin;
+      ok = pick_shape<T, kIwin>(g, sh);
+    }
+  }
+  if (!ok) return cudaErrorInvalidValue;
+  *n_sub = morph::sub_tiles(g);
+  return *n_sub < 0 ? cudaErrorInvalidValue : cudaSuccess;
+}
+
+// dtype codes: 3 float32, 4 float64 (the gdt takes float planes only).
+// The launchers and gdt_geometry both take their shape here.
+cudaError_t shape_of(Geo& g, int dtype, double lamb, int* mode, Shape* sh,
+                     int* n_sub) {
+  if (g.k < 1 || g.cell_h < 1 || g.cell_w < 1) return cudaErrorInvalidValue;
+  switch (dtype) {
+    case 3: return shape_typed<float>(g, lamb, mode, sh, n_sub);
+    case 4: return shape_typed<double>(g, lamb, mode, sh, n_sub);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T, int MODE>
-cudaError_t launch_mode(Geo g, const T* s, T lamb, int n_cells,
-                        cudaStream_t stream) {
-  Shape sh;
-  if (!pick_shape<T, MODE>(g, &sh)) return cudaErrorInvalidValue;
-  const int ns = morph::sub_tiles(g);
-  if (ns < 0) return cudaErrorInvalidValue;
+cudaError_t launch_mode(const Geo& g, const Shape& sh, const T* s, T lamb,
+                        int n_cells, int n_sub, cudaStream_t stream) {
   if (n_cells == 0) return cudaSuccess;
   auto kern = gdt_kernel<T, MODE>;
   const cudaError_t e = morph::allow_smem(kern, sh.smem);
   if (e != cudaSuccess) return e;
-  kern<<<dim3(n_cells, ns), 32 * sh.ncol * sh.nstrip, sh.smem, stream>>>(
+  kern<<<dim3(n_cells, n_sub), 32 * sh.ncol * sh.nstrip, sh.smem, stream>>>(
       g, s, lamb, sh.ncol);
   return cudaGetLastError();
 }
 
-// lamb == 0 takes kUnit; float32 takes kReg wherever a shape fits its
-// 12 warps (K up to 31), else kIwin, as float64 always does (its
-// weights would need twice the registers).
+// lamb crosses as a double and is cast to T once.
 template <typename T>
-cudaError_t launch_typed(Geo g, const void* s, double lamb, int n_cells,
+cudaError_t launch_typed(const Geo& g, const Shape& sh, int mode,
+                         const void* s, double lamb, int n_cells, int n_sub,
                          cudaStream_t stream) {
-  if (g.k < 1 || g.cell_h < 1 || g.cell_w < 1) return cudaErrorInvalidValue;
   const T* sp = static_cast<const T*>(s);
   const T lt = static_cast<T>(lamb);
-  if (lamb == 0.0) return launch_mode<T, kUnit>(g, sp, lt, n_cells, stream);
-  if constexpr (sizeof(T) == 4) {
-    Geo probe = g;
-    Shape sh;
-    if (pick_shape<T, kReg>(probe, &sh))
-      return launch_mode<T, kReg>(g, sp, lt, n_cells, stream);
+  if (mode == kUnit)
+    return launch_mode<T, kUnit>(g, sh, sp, lt, n_cells, n_sub, stream);
+  if constexpr (sizeof(T) == 4) {  // no float64 kReg instance
+    if (mode == kReg)
+      return launch_mode<T, kReg>(g, sh, sp, lt, n_cells, n_sub, stream);
   }
-  return launch_mode<T, kIwin>(g, sp, lt, n_cells, stream);
+  return launch_mode<T, kIwin>(g, sh, sp, lt, n_cells, n_sub, stream);
 }
 
-// dtype codes: 3 float32, 4 float64 (the gdt takes float planes only)
-cudaError_t dispatch(int dtype, const Geo& g, const void* s, double lamb,
+cudaError_t dispatch(int dtype, const Geo& g0, const void* s, double lamb,
                      int n_cells, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 3: return launch_typed<float>(g, s, lamb, n_cells, st);
-    case 4: return launch_typed<double>(g, s, lamb, n_cells, st);
-    default: return cudaErrorInvalidValue;
-  }
+  Geo g = g0;
+  Shape sh;
+  int mode, ns;
+  const cudaError_t e = shape_of(g, dtype, lamb, &mode, &sh, &ns);
+  if (e != cudaSuccess) return e;
+  if (dtype == 3)
+    return launch_typed<float>(g, sh, mode, s, lamb, n_cells, ns, st);
+  return launch_typed<double>(g, sh, mode, s, lamb, n_cells, ns, st);
+}
+
+// A launcher call's Geo, shape and sub-tiles, as dispatch computes them.
+cudaError_t geometry(int dtype, int compact, int rows, int w, int band_h,
+                     int cell_w, int k, int bands_per_image, double lamb,
+                     Geo* g, int* n_cells, int* mode, Shape* sh,
+                     int* n_sub) {
+  *g = morph::launch_geo(compact, rows, w, band_h, cell_w, k,
+                         bands_per_image, n_cells);
+  return shape_of(*g, dtype, lamb, mode, sh, n_sub);
 }
 
 }  // namespace
@@ -484,6 +529,43 @@ int gdt_compact_step_launch(int dtype, const void* d_patch,
   const Geo g = morph::patch_geo(d_patch, i_patch, valid, d_out, changed,
                                  band_h, tile_w, k);
   return dispatch(dtype, g, s_patch, lamb, cap, stream);
+}
+
+// The launch geometry of a launcher call, without launching: a stack of
+// `rows` x w cut into band_h x cell_w cells, or (compact = 1) `rows`
+// patches of (band_h + 2K) x (cell_w + 2K), at lamb.  Fills shape =
+// (mode, tb, tw, ncol, nstrip, smem, n_sub) and returns 0, or returns
+// the error the launcher would.
+int gdt_geometry(int dtype, int compact, int rows, int w, int band_h,
+                 int cell_w, int k, int bands_per_image, double lamb,
+                 long long* shape) {
+  Geo g;
+  Shape sh;
+  int n_cells, mode, ns;
+  const cudaError_t e = geometry(dtype, compact, rows, w, band_h, cell_w, k,
+                                 bands_per_image, lamb, &g, &n_cells, &mode,
+                                 &sh, &ns);
+  if (e != cudaSuccess) return e;
+  const long long v[7] = {mode, g.tb, g.tw, sh.ncol, sh.nstrip,
+                          static_cast<long long>(sh.smem), ns};
+  for (int i = 0; i < 7; ++i) shape[i] = v[i];
+  return 0;
+}
+
+// Every window of that launch (morph::fill_windows: n_cells * n_sub
+// blocks, cell-major, ten values each).
+int gdt_windows(int dtype, int compact, int rows, int w, int band_h,
+                int cell_w, int k, int bands_per_image, double lamb,
+                long long* windows) {
+  Geo g;
+  Shape sh;
+  int n_cells, mode, ns;
+  const cudaError_t e = geometry(dtype, compact, rows, w, band_h, cell_w, k,
+                                 bands_per_image, lamb, &g, &n_cells, &mode,
+                                 &sh, &ns);
+  if (e != cudaSuccess) return e;
+  morph::fill_windows(g, n_cells, ns, windows);
+  return 0;
 }
 
 const char* repro_cuda_error_string(int code) {

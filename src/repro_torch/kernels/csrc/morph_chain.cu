@@ -58,12 +58,14 @@
 // clamp one a word.  The plane holds one byte a pixel (one __byte_perm
 // packs a row), so a warp spans 128 columns: TW = 128 ncol - 2K, TB =
 // kRows nstrip - 2K.  One shape function serves all four launchers: the
-// fewest warps for the whole cell.  At the main path's uint8 K = 32 a
-// 512 x 1024 chain band is 18 blocks of 16 warps with 192 x 192 centres
-// (ragged at the band's edges) in 256 x 256 windows, 2.25x the band's
-// pixels; a geodesic band 48 blocks of 16 warps with 64 x 192 centres in
-// 128 x 256 windows (3x); a 64 x 128 tile or compact cell two 8-warp
-// blocks of 128 x 128 windows (4x).
+// fewest warps for the whole cell, then the most blocks.  At the main
+// path's uint8 K = 32 a 512 x 1024 chain band is 24 blocks of 12 warps
+// with 128 x 192 centres (ragged at the band's edges) in 192 x 256
+// windows, 2.25x the band's pixels; a geodesic band 48 blocks of 15
+// warps with 176 x 64 centres in 240 x 128 windows (2.8x); a 64 x 128
+// tile or compact cell two 8-warp blocks of 128 x 128 windows (4x).
+// repro_torch.analysis.indexmaps models this choice and every block's
+// window, and holds them against morph_geometry / morph_windows.
 //
 // Bound on one H100 SXM (3.35 TB/s; the 67e12/s fp32 non-tensor rate is
 // used for every dtype, which keeps it a lower bound).  Per launch the
@@ -186,7 +188,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int P = kRows<GEO>;
   const int K = g.k;
-  const Window w = morph::locate(g);
+  const Window w = morph::locate(g, blockIdx.x, blockIdx.y);
   if (g.active != nullptr && g.active[blockIdx.x] == 0) {
     pass_through<T>(g, w);
     return;
@@ -312,7 +314,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int P = kRows<GEO>;
   const int K = g.k;
-  const Window w = morph::locate(g);
+  const Window w = morph::locate(g, blockIdx.x, blockIdx.y);
   if (g.active != nullptr && g.active[blockIdx.x] == 0) {
     pass_through<uint8_t>(g, w);
     return;
@@ -500,60 +502,87 @@ bool pick_shape(Geo& g, int rows, int cols, int ring, int esize,
   return best_warps > 0;
 }
 
+// The body (0: morph_u8_kernel, 1: morph_pixel_kernel<T>) and block
+// shape of a launch of `dtype`: uint8 takes the packed body (a plane
+// row: 128 ncol bytes and a word each side), every other dtype the pixel
+// body (32 ncol pixels and one each side).  Sets g.tb, g.tw, g.n_sub_c
+// and *n_sub.  The launchers and morph_geometry both take their shape
+// here.
+cudaError_t shape_of(Geo& g, int dtype, bool geo, int* mode, Shape* sh,
+                     int* n_sub) {
+  if (g.k < 1 || g.cell_h < 1 || g.cell_w < 1) return cudaErrorInvalidValue;
+  static const int esize[] = {1, 2, 4, 4, 8};
+  if (dtype < 0 || dtype > 4) return cudaErrorInvalidValue;
+  const int rows = geo ? kRows<true> : kRows<false>;
+  *mode = dtype == 0 ? 0 : 1;
+  const bool ok = *mode == 0
+                      ? pick_shape(g, rows, 128, 8, 1, sh)
+                      : pick_shape(g, rows, 32, 2, esize[dtype], sh);
+  if (!ok) return cudaErrorInvalidValue;
+  *n_sub = morph::sub_tiles(g);
+  return *n_sub < 0 ? cudaErrorInvalidValue : cudaSuccess;
+}
+
 template <typename Kernel>
-cudaError_t launch_shape(Kernel kern, Geo g, int n_cells, int rows,
-                         int cols, int ring, int esize,
-                         cudaStream_t stream) {
-  Shape sh;
-  if (!pick_shape(g, rows, cols, ring, esize, &sh))
-    return cudaErrorInvalidValue;
-  const int ns = morph::sub_tiles(g);
-  if (ns < 0) return cudaErrorInvalidValue;
+cudaError_t launch_shape(Kernel kern, const Geo& g, const Shape& sh,
+                         int n_cells, int n_sub, cudaStream_t stream) {
   if (n_cells == 0) return cudaSuccess;
   const cudaError_t e = morph::allow_smem(kern, sh.smem);
   if (e != cudaSuccess) return e;
-  kern<<<dim3(n_cells, ns), 32 * sh.ncol * sh.nstrip, sh.smem, stream>>>(
+  kern<<<dim3(n_cells, n_sub), 32 * sh.ncol * sh.nstrip, sh.smem, stream>>>(
       g, sh.ncol);
   return cudaGetLastError();
 }
 
-// uint8 takes the packed kernel (a plane row: 128 ncol bytes and a word
-// each side), every other dtype the pixel kernel (32 ncol pixels and one
-// each side).
 template <typename T, bool MIN, bool GEO>
-cudaError_t launch_one(const Geo& g, int n_cells, cudaStream_t stream) {
+cudaError_t launch_one(const Geo& g, const Shape& sh, int n_cells, int n_sub,
+                       cudaStream_t stream) {
   if constexpr (std::is_same<T, uint8_t>::value)
-    return launch_shape(morph_u8_kernel<MIN, GEO>, g, n_cells, kRows<GEO>,
-                        128, 8, 1, stream);
+    return launch_shape(morph_u8_kernel<MIN, GEO>, g, sh, n_cells, n_sub,
+                        stream);
   else
-    return launch_shape(morph_pixel_kernel<T, MIN, GEO>, g, n_cells,
-                        kRows<GEO>, 32, 2, sizeof(T), stream);
+    return launch_shape(morph_pixel_kernel<T, MIN, GEO>, g, sh, n_cells,
+                        n_sub, stream);
 }
 
 template <typename T>
-cudaError_t launch_typed(const Geo& g, bool is_min, bool geo, int n_cells,
+cudaError_t launch_typed(const Geo& g, const Shape& sh, bool is_min,
+                         bool geo, int n_cells, int n_sub,
                          cudaStream_t stream) {
-  if (g.k < 1 || g.cell_h < 1 || g.cell_w < 1) return cudaErrorInvalidValue;
   if (is_min) {
-    return geo ? launch_one<T, true, true>(g, n_cells, stream)
-               : launch_one<T, true, false>(g, n_cells, stream);
+    return geo ? launch_one<T, true, true>(g, sh, n_cells, n_sub, stream)
+               : launch_one<T, true, false>(g, sh, n_cells, n_sub, stream);
   }
-  return geo ? launch_one<T, false, true>(g, n_cells, stream)
-             : launch_one<T, false, false>(g, n_cells, stream);
+  return geo ? launch_one<T, false, true>(g, sh, n_cells, n_sub, stream)
+             : launch_one<T, false, false>(g, sh, n_cells, n_sub, stream);
 }
 
 // dtype codes: 0 uint8, 1 uint16, 2 int32, 3 float32, 4 float64
-cudaError_t dispatch(int dtype, const Geo& g, int is_min, int geo,
+cudaError_t dispatch(int dtype, const Geo& g0, int is_min, int geo,
                      int n_cells, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Geo g = g0;
+  Shape sh;
+  int mode, ns;
+  const cudaError_t e = shape_of(g, dtype, geo != 0, &mode, &sh, &ns);
+  if (e != cudaSuccess) return e;
   switch (dtype) {
-    case 0: return launch_typed<uint8_t>(g, is_min, geo, n_cells, s);
-    case 1: return launch_typed<uint16_t>(g, is_min, geo, n_cells, s);
-    case 2: return launch_typed<int32_t>(g, is_min, geo, n_cells, s);
-    case 3: return launch_typed<float>(g, is_min, geo, n_cells, s);
-    case 4: return launch_typed<double>(g, is_min, geo, n_cells, s);
+    case 0: return launch_typed<uint8_t>(g, sh, is_min, geo, n_cells, ns, s);
+    case 1: return launch_typed<uint16_t>(g, sh, is_min, geo, n_cells, ns, s);
+    case 2: return launch_typed<int32_t>(g, sh, is_min, geo, n_cells, ns, s);
+    case 3: return launch_typed<float>(g, sh, is_min, geo, n_cells, ns, s);
+    case 4: return launch_typed<double>(g, sh, is_min, geo, n_cells, ns, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// A launcher call's Geo, shape and sub-tiles, as dispatch computes them.
+cudaError_t geometry(int dtype, int geo, int compact, int rows, int w,
+                     int band_h, int cell_w, int k, int bands_per_image,
+                     Geo* g, int* n_cells, int* mode, Shape* sh, int* n_sub) {
+  *g = morph::launch_geo(compact, rows, w, band_h, cell_w, k,
+                         bands_per_image, n_cells);
+  return shape_of(*g, dtype, geo != 0, mode, sh, n_sub);
 }
 
 }  // namespace
@@ -594,6 +623,43 @@ int geodesic_compact_step_launch(int dtype, int is_min, const void* f_patch,
   const Geo g = morph::patch_geo(f_patch, m_patch, valid, out, changed,
                                  band_h, tile_w, k);
   return dispatch(dtype, g, is_min, 1, cap, stream);
+}
+
+// The launch geometry of a launcher call, without launching: a stack of
+// `rows` x w cut into band_h x cell_w cells (geodesic_*: geo = 1), or
+// (compact = 1) `rows` patches of (band_h + 2K) x (cell_w + 2K).  Fills
+// shape = (mode, tb, tw, ncol, nstrip, smem, n_sub) and returns 0, or
+// returns the error the launcher would.
+int morph_geometry(int dtype, int geo, int compact, int rows, int w,
+                   int band_h, int cell_w, int k, int bands_per_image,
+                   long long* shape) {
+  Geo g;
+  Shape sh;
+  int n_cells, mode, ns;
+  const cudaError_t e = geometry(dtype, geo, compact, rows, w, band_h,
+                                 cell_w, k, bands_per_image, &g, &n_cells,
+                                 &mode, &sh, &ns);
+  if (e != cudaSuccess) return e;
+  const long long v[7] = {mode, g.tb, g.tw, sh.ncol, sh.nstrip,
+                          static_cast<long long>(sh.smem), ns};
+  for (int i = 0; i < 7; ++i) shape[i] = v[i];
+  return 0;
+}
+
+// Every window of that launch (morph::fill_windows: n_cells * n_sub
+// blocks, cell-major, ten values each).
+int morph_windows(int dtype, int geo, int compact, int rows, int w,
+                  int band_h, int cell_w, int k, int bands_per_image,
+                  long long* windows) {
+  Geo g;
+  Shape sh;
+  int n_cells, mode, ns;
+  const cudaError_t e = geometry(dtype, geo, compact, rows, w, band_h,
+                                 cell_w, k, bands_per_image, &g, &n_cells,
+                                 &mode, &sh, &ns);
+  if (e != cudaSuccess) return e;
+  morph::fill_windows(g, n_cells, ns, windows);
+  return 0;
 }
 
 const char* repro_cuda_error_string(int code) {

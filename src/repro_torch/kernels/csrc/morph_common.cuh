@@ -8,8 +8,10 @@
 // pre-pinned patch of a vertically stacked patch array (compact).  This
 // header holds the lattice identities, the NaN-propagating min/max and
 // the PTX SIMD min/max, where a block's window lies and which source
-// rows are pinned (locate), and the sub-tile count of a launch
-// (sub_tiles); each source picks its own block shape.  Sub-tiling is
+// rows are pinned (locate), the sub-tile count of a launch (sub_tiles)
+// and the host side of the geometry exports (launch_geo, fill_windows);
+// each source picks its own block shape.  repro_torch.analysis.indexmaps
+// models this arithmetic and holds it against those exports.  Sub-tiling is
 // exact: after K steps a centre pixel depends only on its
 // K-neighbourhood inside its image, so any TB x TW gives the same
 // result.
@@ -120,7 +122,8 @@ struct Geo {
   int tb, tw, n_sub_c;  // sub-tile and sub-tiles per cell row
 };
 
-// One block's sub-tile: blockIdx.x is the cell, blockIdx.y the sub-tile.
+// One block's sub-tile: the kernels pass blockIdx.x as the cell and
+// blockIdx.y as the sub-tile.
 struct Window {
   int tb, tw;            // this sub-tile (ragged at the cell's edge)
   int WH, WW;            // window rows and columns
@@ -129,13 +132,19 @@ struct Window {
   long long orow, ocol;  // the sub-tile's origin in the output
 };
 
-__device__ __forceinline__ Window locate(const Geo& g) {
+__host__ __device__ __forceinline__ int imin(int a, int b) {
+  return a < b ? a : b;
+}
+
+// Where block (cell, sub) reads and writes.  Host code calls it too: the
+// *_windows exports list a launch's windows with it.
+__host__ __device__ __forceinline__ Window locate(const Geo& g, int cell,
+                                                  int sub) {
   const int K = g.k;
-  const int cell = blockIdx.x;
-  const int sr = blockIdx.y / g.n_sub_c, sc = blockIdx.y % g.n_sub_c;
+  const int sr = sub / g.n_sub_c, sc = sub % g.n_sub_c;
   Window w;
-  w.tb = min(g.tb, g.cell_h - sr * g.tb);
-  w.tw = min(g.tw, g.cell_w - sc * g.tw);
+  w.tb = imin(g.tb, g.cell_h - sr * g.tb);
+  w.tw = imin(g.tw, g.cell_w - sc * g.tw);
   w.WH = w.tb + 2 * K;
   w.WW = w.tw + 2 * K;
   if (g.compact) {
@@ -220,6 +229,44 @@ inline Geo patch_geo(const void* f, const void* m, const int* valid,
   g.rows_per_image = band_h + 2 * k;
   g.compact = 1;
   return g;
+}
+
+// The Geo of a launcher call, without its pointers: a stack of `rows` x
+// w cut into band_h x cell_w cells, or (compact) `rows` patches of
+// (band_h + 2K) x (cell_w + 2K); sets *n_cells.  The *_geometry and
+// *_windows exports start here.
+inline Geo launch_geo(int compact, int rows, int w, int band_h, int cell_w,
+                      int k, int bands_per_image, int* n_cells) {
+  if (compact) {
+    *n_cells = rows;
+    return patch_geo(nullptr, nullptr, nullptr, nullptr, nullptr, band_h,
+                     cell_w, k);
+  }
+  *n_cells = (rows / band_h) * (w / cell_w);
+  return stack_geo(nullptr, nullptr, nullptr, nullptr, nullptr, w, band_h,
+                   cell_w, k, bands_per_image);
+}
+
+// Every window of a launch of n_cells x n_sub blocks, cell-major: ten
+// values each, Window's fields in order.
+inline void fill_windows(const Geo& g, int n_cells, int n_sub,
+                         long long* out) {
+  for (int cell = 0; cell < n_cells; ++cell) {
+    for (int sub = 0; sub < n_sub; ++sub) {
+      const Window w = locate(g, cell, sub);
+      long long* o = out + 10LL * (static_cast<long long>(cell) * n_sub + sub);
+      o[0] = w.tb;
+      o[1] = w.tw;
+      o[2] = w.WH;
+      o[3] = w.WW;
+      o[4] = w.wr;
+      o[5] = w.wc;
+      o[6] = w.rlo;
+      o[7] = w.rhi;
+      o[8] = w.orow;
+      o[9] = w.ocol;
+    }
+  }
 }
 
 }  // namespace morph

@@ -204,7 +204,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   constexpr int P = kRows;
   const int K = g.k;
   const int cell = blockIdx.x;
-  const Window w = morph::locate(g);
+  const Window w = morph::locate(g, cell, blockIdx.y);
   if (g.active != nullptr && g.active[cell] == 0) {
     pass_through<T, A>(g, w, p);
     return;
@@ -318,7 +318,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   constexpr int P = kRows;
   const int K = g.k;
   const int cell = blockIdx.x;
-  const Window w = morph::locate(g);
+  const Window w = morph::locate(g, cell, blockIdx.y);
   if (g.active != nullptr && g.active[cell] == 0) {
     pass_through<uint8_t, int32_t>(g, w, p);
     return;
@@ -521,47 +521,74 @@ bool pick_shape(Geo& g, int cols, int ring, int esize, Shape* out) {
   return best_warps > 0;
 }
 
+// The body (0: qdt_u8_kernel, 1: qdt_pixel_kernel<T>) and block shape of
+// a launch of `dtype`: uint8 with K < kSteps takes the packed body (a
+// plane row: 128 ncol bytes and a word each side), every other case the
+// pixel body (32 ncol pixels and one each side).  Sets g.tb, g.tw,
+// g.n_sub_c and *n_sub.  The launchers and qdt_geometry both take their
+// shape here.
+cudaError_t shape_of(Geo& g, int dtype, int* mode, Shape* sh, int* n_sub) {
+  if (g.k < 1 || g.cell_h < 1 || g.cell_w < 1) return cudaErrorInvalidValue;
+  static const int esize[] = {1, 2, 4, 4, 8};
+  if (dtype < 0 || dtype > 4) return cudaErrorInvalidValue;
+  *mode = dtype == 0 && g.k < kSteps ? 0 : 1;
+  const bool ok = *mode == 0 ? pick_shape(g, 128, 8, 1, sh)
+                             : pick_shape(g, 32, 2, esize[dtype], sh);
+  if (!ok) return cudaErrorInvalidValue;
+  *n_sub = morph::sub_tiles(g);
+  return *n_sub < 0 ? cudaErrorInvalidValue : cudaSuccess;
+}
+
 template <typename Kernel>
-cudaError_t launch_shape(Kernel kern, Geo g, const Planes& p, int n_cells,
-                         int cols, int ring, int esize,
+cudaError_t launch_shape(Kernel kern, const Geo& g, const Planes& p,
+                         const Shape& sh, int n_cells, int n_sub,
                          cudaStream_t stream) {
-  Shape sh;
-  if (!pick_shape(g, cols, ring, esize, &sh)) return cudaErrorInvalidValue;
-  const int ns = morph::sub_tiles(g);
-  if (ns < 0) return cudaErrorInvalidValue;
   if (n_cells == 0) return cudaSuccess;
   const cudaError_t e = morph::allow_smem(kern, sh.smem);
   if (e != cudaSuccess) return e;
-  kern<<<dim3(n_cells, ns), 32 * sh.ncol * sh.nstrip, sh.smem, stream>>>(
+  kern<<<dim3(n_cells, n_sub), 32 * sh.ncol * sh.nstrip, sh.smem, stream>>>(
       g, p, sh.ncol);
   return cudaGetLastError();
 }
 
-// uint8 with K < kSteps takes the packed kernel (a plane row: 128 ncol
-// bytes and a word each side), every other case the pixel kernel (32
-// ncol pixels and one each side).
 template <typename T>
-cudaError_t launch_typed(const Geo& g, const Planes& p, int n_cells,
+cudaError_t launch_typed(const Geo& g, const Planes& p, const Shape& sh,
+                         int mode, int n_cells, int n_sub,
                          cudaStream_t stream) {
-  if (g.k < 1 || g.cell_h < 1 || g.cell_w < 1) return cudaErrorInvalidValue;
-  if (sizeof(T) == 1 && g.k < kSteps)
-    return launch_shape(qdt_u8_kernel, g, p, n_cells, 128, 8, 1, stream);
-  return launch_shape(qdt_pixel_kernel<T>, g, p, n_cells, 32, 2, sizeof(T),
+  if constexpr (sizeof(T) == 1) {
+    if (mode == 0)
+      return launch_shape(qdt_u8_kernel, g, p, sh, n_cells, n_sub, stream);
+  }
+  return launch_shape(qdt_pixel_kernel<T>, g, p, sh, n_cells, n_sub,
                       stream);
 }
 
 // dtype codes: 0 uint8, 1 uint16, 2 int32, 3 float32, 4 float64
-cudaError_t dispatch(int dtype, const Geo& g, const Planes& p, int n_cells,
+cudaError_t dispatch(int dtype, const Geo& g0, const Planes& p, int n_cells,
                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Geo g = g0;
+  Shape sh;
+  int mode, ns;
+  const cudaError_t e = shape_of(g, dtype, &mode, &sh, &ns);
+  if (e != cudaSuccess) return e;
   switch (dtype) {
-    case 0: return launch_typed<uint8_t>(g, p, n_cells, s);
-    case 1: return launch_typed<uint16_t>(g, p, n_cells, s);
-    case 2: return launch_typed<int32_t>(g, p, n_cells, s);
-    case 3: return launch_typed<float>(g, p, n_cells, s);
-    case 4: return launch_typed<double>(g, p, n_cells, s);
+    case 0: return launch_typed<uint8_t>(g, p, sh, mode, n_cells, ns, s);
+    case 1: return launch_typed<uint16_t>(g, p, sh, mode, n_cells, ns, s);
+    case 2: return launch_typed<int32_t>(g, p, sh, mode, n_cells, ns, s);
+    case 3: return launch_typed<float>(g, p, sh, mode, n_cells, ns, s);
+    case 4: return launch_typed<double>(g, p, sh, mode, n_cells, ns, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// A launcher call's Geo, shape and sub-tiles, as dispatch computes them.
+cudaError_t geometry(int dtype, int compact, int rows, int w, int band_h,
+                     int cell_w, int k, int bands_per_image, Geo* g,
+                     int* n_cells, int* mode, Shape* sh, int* n_sub) {
+  *g = morph::launch_geo(compact, rows, w, band_h, cell_w, k,
+                         bands_per_image, n_cells);
+  return shape_of(*g, dtype, mode, sh, n_sub);
 }
 
 }  // namespace
@@ -598,6 +625,41 @@ int qdt_compact_step_launch(int dtype, const void* f_patch, const void* r,
   const Geo g = morph::patch_geo(f_patch, nullptr, valid, f_out, changed,
                                  band_h, tile_w, k);
   return dispatch(dtype, g, Planes{r, d, r_out, d_out, base}, cap, stream);
+}
+
+// The launch geometry of a launcher call, without launching: a stack of
+// `rows` x w cut into band_h x cell_w cells, or (compact = 1) `rows`
+// patches of (band_h + 2K) x (cell_w + 2K).  Fills shape = (mode, tb, tw,
+// ncol, nstrip, smem, n_sub) and returns 0, or returns the error the
+// launcher would.
+int qdt_geometry(int dtype, int compact, int rows, int w, int band_h,
+                 int cell_w, int k, int bands_per_image, long long* shape) {
+  Geo g;
+  Shape sh;
+  int n_cells, mode, ns;
+  const cudaError_t e = geometry(dtype, compact, rows, w, band_h, cell_w, k,
+                                 bands_per_image, &g, &n_cells, &mode, &sh,
+                                 &ns);
+  if (e != cudaSuccess) return e;
+  const long long v[7] = {mode, g.tb, g.tw, sh.ncol, sh.nstrip,
+                          static_cast<long long>(sh.smem), ns};
+  for (int i = 0; i < 7; ++i) shape[i] = v[i];
+  return 0;
+}
+
+// Every window of that launch (morph::fill_windows: n_cells * n_sub
+// blocks, cell-major, ten values each).
+int qdt_windows(int dtype, int compact, int rows, int w, int band_h,
+                int cell_w, int k, int bands_per_image, long long* windows) {
+  Geo g;
+  Shape sh;
+  int n_cells, mode, ns;
+  const cudaError_t e = geometry(dtype, compact, rows, w, band_h, cell_w, k,
+                                 bands_per_image, &g, &n_cells, &mode, &sh,
+                                 &ns);
+  if (e != cudaSuccess) return e;
+  morph::fill_windows(g, n_cells, ns, windows);
+  return 0;
 }
 
 const char* repro_cuda_error_string(int code) {

@@ -394,6 +394,13 @@ def scheduler_state0(plan: ChainPlan, device) -> SchedulerState:
         np.ones((plan.total_tiles,), np.int32))
 
 
+def compacts(plan: ChainPlan) -> bool:
+    """Does the requeue scheduler gather a compact workspace under
+    ``plan`` (a threshold, and fewer slots than cells)?"""
+    return (plan.compact_threshold > 0.0
+            and plan.compact_capacity < plan.total_tiles)
+
+
 def _drive_scheduler(plan: ChainPlan, data, device, *, full_step,
                      compact_step=None, gather_const=None, max_chunks: int,
                      with_stats: bool = False, resume=None,
@@ -437,8 +444,7 @@ def _drive_scheduler(plan: ChainPlan, data, device, *, full_step,
     """
     total = plan.total_tiles
     cap = plan.compact_capacity
-    use_compact = (compact_step is not None and plan.compact_threshold > 0.0
-                   and cap < total)
+    use_compact = compact_step is not None and compacts(plan)
     with_cache = use_compact and gather_const is not None
     active, img_chunks, exhausted, active_h = (
         resume if resume is not None else scheduler_state0(plan, device))

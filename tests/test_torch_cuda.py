@@ -403,3 +403,52 @@ def test_continuous_service_on_the_card_equals_the_batch_path(cuda):
             assert svc.stats()["counters"]["refills"] > 0
     for a, b in zip(results[False], results[True]):
         assert b.device.type == "cuda" and torch.equal(a, b)
+
+
+#: launch grids for the geometry exports: (rows, width, band_h, cell_w,
+#: bands_per_image) of a stack — narrow tiles (below a warp's 128 packed
+#: columns), widths off 128, full-width bands — and compact caps
+GEOMETRY_STACKS = [(6, 200, 200, 2), (6, 200, 40, 2), (4, 384, 192, 1),
+                   (2, 130, 130, 2)]
+GEOMETRY_CAPS = [(5, 40), (3, 200), (1, 128)]
+
+
+def _geometry_launches(k):
+    from repro_torch.analysis import indexmaps as IM
+
+    band_h = k * max(1, 48 // k)
+    for kernel, (source, layout, _) in IM.KERNELS.items():
+        for dtype in IM.DTYPE_CODES:
+            for lamb in ((0.0, 0.37) if source == "gdt" else (1.0,)):
+                common = dict(kernel=kernel, dtype=dtype, k=k, band_h=band_h,
+                              lamb=lamb)
+                if layout == "patch":
+                    for cap, cell_w in GEOMETRY_CAPS:
+                        yield IM.Launch(rows=cap, width=cell_w + 2 * k,
+                                        cell_w=cell_w, **common)
+                    continue
+                for bands, w, cell_w, bpi in GEOMETRY_STACKS:
+                    if layout == "band":
+                        cell_w = w
+                    yield IM.Launch(rows=bands * band_h, width=w,
+                                    cell_w=cell_w, bands_per_image=bpi,
+                                    **common)
+
+
+@pytest.mark.parametrize("k", (1, 2, 7, 31, 32))
+def test_geometry_exports_equal_the_model(cuda, k):
+    """Every source's ``*_geometry`` and ``*_windows`` exports (the
+    launchers' own shape choice and ``morph::locate`` on every block)
+    equal ``repro_torch.analysis.indexmaps``' model field for field,
+    for every kernel, dtype and λ instance, and every feasible launch
+    is proved in bounds and a partition."""
+    from repro_torch.analysis import indexmaps as IM
+
+    n_windows = 0
+    for launch in _geometry_launches(k):
+        finds, n = IM.compare_with_library(launch)
+        assert not finds, [str(f) for f in finds]
+        n_windows += n
+        if IM.launch_shape(launch)[1] is not None:
+            assert IM.check_launch(launch) == [], launch.label()
+    assert n_windows > 0

@@ -61,6 +61,12 @@ def test_no_jax_or_reference_import_in_port_sources():
         "__init__", "errors", "faults", "loop", "metrics", "cache",
         "bucketer", "registry", "executor", "service",
         "continuous")} <= set(files)
+    assert {PORT / "analysis" / f"{name}.py" for name in (
+        "__init__", "findings", "halo", "plans", "dtypes", "cachekeys",
+        "indexmaps", "rewrites", "verifier", "lint")} <= set(files)
+    assert {PORT / "baselines" / f"{name}.py" for name in (
+        "__init__", "naive", "vhgw", "pixel_pump",
+        "queue_reconstruction")} <= set(files)
     offenders = [(f.relative_to(REPO).as_posix(), root) for f in files
                  for root in _imported_roots(f)
                  if root in ("jax", "jaxlib", "repro")]
