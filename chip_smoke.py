@@ -80,7 +80,17 @@ Phases, each of which makes the script exit non-zero when it fails:
    at s = 1 … 91 beside the ``"cuda"`` engine's chain of s steps, at
    N=8 × 1024² in uint8 and float64 — every result equal — and the
    naive per-filter chain at n = 64 beside the fused one.  It prints
-   where each is faster; no gain is claimed.
+   where each is faster; no gain is claimed;
+10. distributed: ``repro_torch.core.distributed`` at 1024² — a 64-step
+   erosion chain in uint8 and float32 and the HMAX reconstruction
+   (marker f - 40, mask f) — (a) as one rank of an NCCL group on a 1×1
+   grid in this process, (b) as a 2×2 grid of four spawned gloo ranks
+   on the one card (512² blocks: the K-deep halos cross ranks through
+   host buffers; NCCL cannot put two ranks on one card).  Every result
+   must equal the ``"torch"`` engine's, (b) must equal (a), and each
+   counted run (every rank's) must launch ``chain_step`` and
+   ``geodesic_chain_step``.  It prints each case's wall ms, K, chunks
+   and halo bytes a chunk; no speed-up is claimed.
 
 The third-to-last line of standard output is the card's ``nvidia-smi``
 name and power limit, the second-to-last ``{"kernels": [...]}``, and
@@ -1698,6 +1708,185 @@ def run_baselines(images, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: distributed morphology (repro_torch.core.distributed)
+# ---------------------------------------------------------------------------
+
+#: Steps of the distributed chains (2 chunks of K = 32 in uint8, 4 of
+#: K = 16 in float32).
+DIST_N = 64
+#: The kernels the distributed path must launch.
+DIST_KERNELS = ("chain_step", "geodesic_chain_step")
+#: The 2×2 grid's ranks, all on the one card under gloo.
+DIST_RANKS = 4
+#: Seconds the four ranks may take, start-up included.
+DIST_TIMEOUT_S = 300
+
+
+def dist_inputs(device) -> dict:
+    """Case → inputs: a 1024² ``blobs`` image through the chain in uint8
+    and float32, and the HMAX pair (marker f - 40, mask f)."""
+    from repro_torch.core.operators import sat_sub
+    from repro_torch.data.images import blobs
+
+    u8 = torch.from_numpy(blobs(SIZE, SIZE, np.uint8)).to(device)
+    f32 = torch.from_numpy(blobs(SIZE, SIZE, np.float32)).to(device)
+    return {"chain/uint8": (u8,), "chain/float32": (f32,),
+            "hmax40-rec/uint8": (sat_sub(u8, 40), u8)}
+
+
+def halo_bytes(grid, block, k: int, itemsize: int) -> int:
+    """Bytes all ranks send in one chunk's two-phase exchange: k rows of
+    the block to each row neighbour, then k columns of the row-extended
+    block to each column neighbour."""
+    rows, cols = grid.shape
+    h, w = block
+    row_sends = 2 * (rows - 1) * cols
+    col_sends = 2 * rows * (cols - 1)
+    return itemsize * k * (row_sends * w + col_sends * (h + 2 * k))
+
+
+def run_dist_cases(grid, rank: int, device, counters) -> tuple:
+    """Every distributed case on this rank's blocks: one warm-up run,
+    then the counted run, each case timed on the host clock around
+    ``torch.cuda.synchronize()``.  Returns per-case rows, the gathered
+    images and the counted launches."""
+    from repro_torch.core import distributed as D
+    from repro_torch.core.chain import plan_chain
+
+    runs = {}
+    for case, args in dist_inputs(device).items():
+        blocks = [D.scatter_blocks(a, grid, rank).contiguous() for a in args]
+        h, w = blocks[0].shape
+        if case.startswith("chain"):
+            fn = D.distributed_chain(grid, n=DIST_N, device=device)
+            k = plan_chain(h, w, blocks[0].dtype, DIST_N).fuse_k
+        else:
+            fn = D.distributed_reconstruct(grid, op="dilate", device=device)
+            k = plan_chain(h, w, blocks[0].dtype, None,
+                           n_images_resident=2).fuse_k
+        runs[case] = (fn, blocks, k)
+        fn(*blocks)
+    sync()
+    for c in counters.values():
+        c.launches = 0
+    rows, outs = {}, {}
+    for case, (fn, blocks, k) in runs.items():
+        sync()
+        t0 = time.perf_counter()
+        local = fn(*blocks)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        chunks = getattr(fn, "chunks", -(-DIST_N // k))
+        rows[case] = dict(ms=ms, k=k, chunks=chunks, block=[h, w],
+                          halo_bytes_per_chunk=halo_bytes(
+                              grid, blocks[0].shape, k,
+                              blocks[0].element_size()))
+        outs[case] = D.gather_blocks(local, grid)
+    return rows, outs, {k: counters[k].launches for k in DIST_KERNELS}
+
+
+def dist_rank(rank: int, tmp: str) -> None:
+    """One of phase 10's gloo ranks (spawned): computes on the one card,
+    carries its halos through host buffers, and writes its rows and
+    launches (rank 0 also the gathered images) under ``tmp``."""
+    from repro_torch.core import distributed as D
+
+    torch.set_num_threads(1)
+    torch.cuda.set_device(0)
+    with D.file_group(f"{tmp}/gloo", rank, DIST_RANKS, "gloo"):
+        rows, outs, launches = run_dist_cases(
+            D.RankGrid(2, 2), rank, torch.device("cuda", 0),
+            kernel_modules())
+    if rank == 0:
+        torch.save({k: v.cpu() for k, v in outs.items()}, f"{tmp}/gloo.pt")
+    pathlib.Path(f"{tmp}/rank{rank}.json").write_text(
+        json.dumps(dict(rows=rows, launches=launches)))
+
+
+def run_distributed(counters, card: str) -> dict:
+    """(a) one rank under NCCL on a 1×1 grid, in this process; (b) a 2×2
+    grid of four spawned gloo ranks on the one card (512² blocks, so the
+    K-deep halos cross ranks).  Each case must equal the ``"torch"``
+    engine, (b) must equal (a), and every rank's counted run must launch
+    ``chain_step`` and ``geodesic_chain_step``.  No speed-up is claimed:
+    one card cannot show one."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels import ops
+
+    inputs = dist_inputs(DEVICE)
+    u8, f32 = inputs["chain/uint8"][0], inputs["chain/float32"][0]
+    want = {"chain/uint8": ops.morph_chain(u8, DIST_N, "erode", "torch",
+                                           device=DEVICE),
+            "chain/float32": ops.morph_chain(f32, DIST_N, "erode", "torch",
+                                             device=DEVICE),
+            "hmax40-rec/uint8": ops.reconstruct_with_stats(
+                *inputs["hmax40-rec/uint8"], "dilate", "torch",
+                device=DEVICE)[0]}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.set_device(0)
+        with D.file_group(f"{tmp}/nccl", 0, 1, "nccl"):
+            rows, outs, launches = run_dist_cases(
+                D.RankGrid(1, 1), 0, torch.device(DEVICE), counters)
+        for case, got in outs.items():
+            if not same(got, want[case]):
+                raise AssertionError(
+                    f"distributed nccl {case} != torch engine "
+                    f"(max_abs_err={max_abs_err(got, want[case])})")
+        missing = [k for k in DIST_KERNELS if not launches[k]]
+        if missing:
+            raise AssertionError(f"distributed nccl never launched {missing}")
+        out["nccl_1x1"] = dict(rows=rows, launches=launches)
+
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(dist_rank, args=(tmp,), nprocs=DIST_RANKS,
+                                 join=False, start_method="spawn")
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() - t0 > DIST_TIMEOUT_S:
+                    raise TimeoutError(f"distributed gloo ranks still "
+                                       f"running after {DIST_TIMEOUT_S} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+        spawn_s = time.perf_counter() - t0
+        gloo = torch.load(f"{tmp}/gloo.pt")
+        ranks = [json.loads(pathlib.Path(f"{tmp}/rank{r}.json").read_text())
+                 for r in range(DIST_RANKS)]
+    for case, got in gloo.items():
+        if not same(got.to(DEVICE), outs[case]):
+            raise AssertionError(f"distributed gloo 2x2 {case} != the nccl "
+                                 "1x1 run")
+    for r, rec in enumerate(ranks):
+        missing = [k for k in DIST_KERNELS if not rec["launches"][k]]
+        if missing:
+            raise AssertionError(f"distributed gloo rank {r} never launched "
+                                 f"{missing}")
+    gloo_rows = {case: dict(ranks[0]["rows"][case],
+                            ms=max(rec["rows"][case]["ms"] for rec in ranks))
+                 for case in ranks[0]["rows"]}
+    out["gloo_2x2"] = dict(rows=gloo_rows, spawn_s=spawn_s,
+                           launches=[rec["launches"] for rec in ranks])
+    for run, rec in (("nccl 1x1", out["nccl_1x1"]),
+                     ("gloo 2x2", out["gloo_2x2"])):
+        for case, row in rec["rows"].items():
+            log(f"distributed {run} {case}: {row['ms']:.2f} ms wall, "
+                f"K={row['k']}, {row['chunks']} chunks, "
+                f"{row['halo_bytes_per_chunk']} halo bytes a chunk, block "
+                f"{row['block'][0]}x{row['block'][1]} ({card})")
+        log(f"distributed {run}: equal to the torch engine; launches "
+            f"{rec['launches']}")
+    log(f"distributed gloo 2x2: four ranks on one card in {spawn_s:.1f} s "
+        f"(start-up included)")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -1757,6 +1946,7 @@ def main() -> int:
     del ctx
     verifier = run_verifier(smi)
     baselines = run_baselines(images, smi)
+    distributed = run_distributed(counters, smi)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1767,7 +1957,7 @@ def main() -> int:
                        for r in rows],
          "traces": traces, "kernels": timing, "serving": serving,
          "continuous": continuous, "verifier": verifier,
-         "baselines": baselines},
+         "baselines": baselines, "distributed": distributed},
         indent=1))
     log(smi)
     log(json.dumps({"kernels": [

@@ -20,8 +20,13 @@ against the oracles on either device, so the choice may only change
 """
 from __future__ import annotations
 
+import warnings
+from typing import Literal
+
 import numpy as np
 import torch
+
+Backend = Literal["cuda", "torch"]
 
 #: Every engine name a public entry point accepts.
 BACKENDS: tuple[str, ...] = ("cuda", "torch")
@@ -30,16 +35,39 @@ BACKENDS: tuple[str, ...] = ("cuda", "torch")
 DEFAULT_BACKEND = "cuda"
 
 
+def default_backend() -> str:
+    """The policy default: the ``"cuda"`` engine on every platform (the
+    device, not the engine, says where it runs)."""
+    return DEFAULT_BACKEND
+
+
 def canonicalize_backend(backend: str | None) -> str:
-    """Validate ``backend``, resolving ``None`` to ``"cuda"``."""
+    """Validate ``backend``, resolving ``None`` to the policy default."""
     if backend is None:
-        return DEFAULT_BACKEND
+        return default_backend()
     if backend not in BACKENDS:
         raise ValueError(
             f"backend must be one of {BACKENDS} (or None for "
             f"{DEFAULT_BACKEND!r}), got {backend!r}"
         )
     return backend
+
+
+def warn_legacy_kwargs(entry: str, *names: str) -> None:
+    """Deprecation shim for the pre-expression call surfaces (the
+    reference's, message and ``stacklevel`` alike).
+
+    The legacy operator kwargs (``backend=``, ``max_iters=``,
+    ``max_chunks=``) keep working, but new code should build an
+    expression and bind the engine at ``repro_torch.api.compile`` time.
+    """
+    warnings.warn(
+        f"{entry}: the {'/'.join(names)} argument(s) are deprecated; "
+        "build an expression and pass them to repro_torch.api.compile("
+        "expr, shape, dtype, backend, ...) instead",
+        DeprecationWarning,
+        stacklevel=3,
+    )
 
 
 def resolve_device(device=None) -> torch.device:

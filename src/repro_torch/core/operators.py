@@ -12,6 +12,12 @@ Two kinds of things, as in the reference:
   through ``repro_torch.api.compile`` on ``device`` (``None`` is the
   GPU; the input is moved there, and the CPU must be asked for).
 
+Legacy kwargs keep working through the reference's deprecation shims:
+``backend=`` forwards into the compiled expression with a
+``DeprecationWarning``, and ``max_iters=`` (elementary steps, finer
+than the fused driver's K-chunks) runs the exact truncated oracle
+reconstruction on ``device``.
+
 The quasi-distance transform's oracle (``qdt_raw``, Eq. 13) and its
 η-regularization (``qdt_regularize``, Eq. 14-15) are plain torch loops
 on their tensor's device — ``qdt_raw`` is the ``"torch"`` engine's QDT,
@@ -25,7 +31,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import morphology as M
-from repro_torch.core.backend import numpy_dtype, resolve_device
+from repro_torch.core.backend import (numpy_dtype, resolve_device,
+                                     warn_legacy_kwargs)
 from repro_torch.kernels.common import qdt_acc_dtype
 
 
@@ -146,28 +153,59 @@ def _rec_with_marker(marker: torch.Tensor, mask: torch.Tensor, op: str,
     return exe(marker=marker, mask=mask).reshape(shape)
 
 
+def _on(f, device) -> torch.Tensor:
+    """``f`` as a tensor on ``device`` (``None`` is the GPU)."""
+    return torch.as_tensor(f, device=resolve_device(device))
+
+
 def _hmax_marker(f, h, device):
-    """f on the run's device and the HMAX marker f - h of a non-scalar h."""
-    f = torch.as_tensor(f, device=resolve_device(device))
+    """f on the run's device and the HMAX marker f - h."""
+    f = _on(f, device)
     return f, sat_sub(f, h)
 
 
-def hmax(f: torch.Tensor, h, backend: str | None = None,
-         device=None) -> torch.Tensor:
+def _legacy_reconstruct(marker: torch.Tensor, mask: torch.Tensor, op: str,
+                        max_iters: int) -> torch.Tensor:
+    """Truncated reconstruction: always the exact oracle path (an
+    explicit ``max_iters`` counts elementary steps; the fused driver can
+    only truncate at K-chunk granularity)."""
+    if op == "erode":
+        return M.erode_reconstruct(marker, mask, max_iters)
+    return M.dilate_reconstruct(marker, mask, max_iters)
+
+
+def _warn_legacy(entry: str, max_iters, backend) -> None:
+    legacy = [n for n, v in (("max_iters", max_iters),
+                             ("backend", backend)) if v is not None]
+    if legacy:
+        warn_legacy_kwargs(entry, *legacy)
+
+
+def hmax(f: torch.Tensor, h, max_iters: int | None = None,
+         backend: str | None = None, device=None) -> torch.Tensor:
     """HMAX_h(f) = δ_rec^f(f - h): suppress maxima of contrast < h.  A
     non-scalar ``h`` (per image, broadcast against ``f``) cannot embed
     in the graph: its marker is made first and reconstructed on the
-    requested engine."""
+    requested engine.  ``max_iters=`` (deprecated) runs the truncated
+    oracle reconstruction."""
+    _warn_legacy("core.operators.hmax", max_iters, backend)
+    if max_iters is not None:
+        f, marker = _hmax_marker(f, h, device)
+        return _legacy_reconstruct(marker, f, "dilate", max_iters)
     if not _is_scalar(h):
         f, marker = _hmax_marker(f, h, device)
         return _rec_with_marker(marker, f, "dilate", backend, device)
     return _run(_api().hmax_expr, f, backend, device, h)
 
 
-def dome(f: torch.Tensor, h, backend: str | None = None,
-         device=None) -> torch.Tensor:
+def dome(f: torch.Tensor, h, max_iters: int | None = None,
+         backend: str | None = None, device=None) -> torch.Tensor:
     """DOME_h(f) = f - HMAX_h(f): extract the suppressed maxima (``h``
-    as in :func:`hmax`)."""
+    and ``max_iters`` as in :func:`hmax`)."""
+    _warn_legacy("core.operators.dome", max_iters, backend)
+    if max_iters is not None:
+        f, marker = _hmax_marker(f, h, device)
+        return sub(f, _legacy_reconstruct(marker, f, "dilate", max_iters))
     if not _is_scalar(h):
         f, marker = _hmax_marker(f, h, device)
         return sub(f, _rec_with_marker(marker, f, "dilate", backend,
@@ -175,23 +213,38 @@ def dome(f: torch.Tensor, h, backend: str | None = None,
     return _run(_api().dome_expr, f, backend, device, h)
 
 
-def hfill(f: torch.Tensor, backend: str | None = None,
-          device=None) -> torch.Tensor:
+def hfill(f: torch.Tensor, max_iters: int | None = None,
+          backend: str | None = None, device=None) -> torch.Tensor:
     """HFILL(f) = ε_rec^f(m_HFILL(f)) (Eq. 8)."""
+    _warn_legacy("core.operators.hfill", max_iters, backend)
+    if max_iters is not None:
+        f = _on(f, device)
+        return _legacy_reconstruct(hfill_marker(f), f, "erode", max_iters)
     return _run(_api().hfill_expr, f, backend, device)
 
 
-def raobj(f: torch.Tensor, backend: str | None = None,
-          device=None) -> torch.Tensor:
+def raobj(f: torch.Tensor, max_iters: int | None = None,
+          backend: str | None = None, device=None) -> torch.Tensor:
     """RAOBJ(f) = f - δ_rec^f(m_RAOBJ(f)) (Eq. 10)."""
+    _warn_legacy("core.operators.raobj", max_iters, backend)
+    if max_iters is not None:
+        f = _on(f, device)
+        return sub(f, _legacy_reconstruct(raobj_marker(f), f, "dilate",
+                                          max_iters))
     return _run(_api().raobj_expr, f, backend, device)
 
 
 def opening_by_reconstruction(f: torch.Tensor, s: int,
+                              max_iters: int | None = None,
                               backend: str | None = None,
                               device=None) -> torch.Tensor:
     """γ_rec^s(f) = δ_rec^f(ε_s(f)): remove components smaller than s.
     The erosion chain and the reconstruction share one padded program."""
+    _warn_legacy("core.operators.opening_by_reconstruction", max_iters,
+                 backend)
+    if max_iters is not None:
+        f = _on(f, device)
+        return _legacy_reconstruct(M.erode(f, s), f, "dilate", max_iters)
     return _run(_api().opening_by_reconstruction_expr, f, backend, device,
                 s)
 
@@ -249,10 +302,12 @@ def qdt(f: torch.Tensor, max_s: int | None = None,
         backend: str | None = None, device=None) -> torch.Tensor:
     """L1-regularized quasi-distance transform d_L1(f) on ``device``
     (``None`` is the GPU).  With ``max_s`` the oracle runs at most
-    ``max_s`` erosions, as in the reference."""
+    ``max_s`` erosions, as in the reference.  ``backend=`` is
+    deprecated here, as in the reference."""
+    if backend is not None:
+        warn_legacy_kwargs("core.operators.qdt", "backend")
     if max_s is not None:
-        d, _ = qdt_raw(torch.as_tensor(f, device=resolve_device(device)),
-                       max_s)
+        d, _ = qdt_raw(_on(f, device), max_s)
         return qdt_regularize(d)
     return _run(_api().qdt_l1_expr, f, backend, device)
 
@@ -267,7 +322,7 @@ def granulometric_function(f: torch.Tensor, smax: int,
     """G_s(f) = Σ_p γ_s(f) for s = 0..smax (Eq. 17) on ``device``
     (``None`` is the GPU), the erosion chain extended one step per
     scale and re-dilated (Eq. 16)."""
-    f = torch.as_tensor(f, device=resolve_device(device))
+    f = _on(f, device)
     acc = torch.float64 if f.dtype == torch.float64 else torch.float32
     sums = [M.wide(f).to(acc).sum()]
     eroded = f

@@ -9,7 +9,8 @@ step bundles) and the gdt's raster sweeps (``_raster_gdt``) and Jacobi
 oracle (``gdt_fixpoint``) that ``repro_torch.api``'s executables drive.
 The operator sugar (``erode``/``dilate``/``opening``/``closing``/
 ``reconstruct``/``qdt_planes``/``gdt``) builds an expression and routes
-through ``repro_torch.api.compile``.
+through ``repro_torch.api.compile``; its ``backend=``/``max_chunks=``
+are deprecated there and warn, as the reference's do.
 
 Every entry point runs on ``device`` (``None`` is the GPU, which raises
 without one; the CPU must be asked for with ``device="cpu"``) and moves
@@ -51,7 +52,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import morphology as M
-from repro_torch.core.backend import canonicalize_backend, resolve_device
+from repro_torch.core.backend import (canonicalize_backend, resolve_device,
+                                     warn_legacy_kwargs)
 from repro_torch.core.chain import ChainPlan, plan_chain
 from repro_torch.kernels.common import (as_bits, bits_value, cell_view,
                                         cells_to_plane, from_bits,
@@ -294,8 +296,10 @@ def morph_chain(f: torch.Tensor, n: int, op: str = "erode",
     return _crop(_unstacked(x2, f3.shape[0]), f.shape, was_2d)
 
 
-def _compile_unary(build, f: torch.Tensor, backend, device):
+def _compile_unary(build, f: torch.Tensor, backend, device, name: str):
     api = _api()
+    if backend is not None:
+        warn_legacy_kwargs(name, "backend")
     exe = api.compile(build(api.E.input("f")), f.shape, f.dtype, backend,
                       device=device)
     return exe(f)
@@ -305,26 +309,26 @@ def erode(f: torch.Tensor, s: int, backend: str | None = None,
           device=None):
     """ε_s via a chain of s elementary erosions (Eq. 4 decomposition)."""
     return _compile_unary(lambda x: _api().E.erode(s, x), f, backend,
-                          device)
+                          device, "kernels.ops.erode")
 
 
 def dilate(f: torch.Tensor, s: int, backend: str | None = None,
            device=None):
     return _compile_unary(lambda x: _api().E.dilate(s, x), f, backend,
-                          device)
+                          device, "kernels.ops.dilate")
 
 
 def opening(f: torch.Tensor, s: int, backend: str | None = None,
             device=None):
     """γ_s = δ_s ∘ ε_s — compiled as one two-segment padded program."""
     return _compile_unary(lambda x: _api().E.opening(s, x), f, backend,
-                          device)
+                          device, "kernels.ops.opening")
 
 
 def closing(f: torch.Tensor, s: int, backend: str | None = None,
             device=None):
     return _compile_unary(lambda x: _api().E.closing(s, x), f, backend,
-                          device)
+                          device, "kernels.ops.closing")
 
 
 # ---------------------------------------------------------------------------
@@ -565,7 +569,12 @@ def reconstruct(f: torch.Tensor, m: torch.Tensor, op: str = "erode",
     """ε_rec / δ_rec with kernel-fused convergence detection (Alg. 4),
     through ``repro_torch.api.compile`` on ``device`` (``None`` is the
     GPU).  Accepts (H, W) or (N, H, W); each image converges
-    independently."""
+    independently.  ``backend=``/``max_chunks=`` are deprecated here
+    (bind them at compile time instead)."""
+    legacy = [n for n, v in (("backend", backend),
+                             ("max_chunks", max_chunks)) if v is not None]
+    if legacy:
+        warn_legacy_kwargs("kernels.ops.reconstruct", *legacy)
     if f.shape != m.shape:
         raise ValueError(f"marker shape {tuple(f.shape)} != mask shape "
                          f"{tuple(m.shape)}")
@@ -676,7 +685,12 @@ def qdt_planes(f: torch.Tensor, backend: str | None = None,
     """d(f), r(f) of Eq. 13 with the fused masked-store kernels, through
     ``repro_torch.api.compile`` on ``device`` (``None`` is the GPU).
     Accepts (H, W) or (N, H, W); runs the same active-cell requeue
-    scheduler as ``reconstruct``.  Returns (d, r)."""
+    scheduler as ``reconstruct``.  Returns (d, r).
+    ``backend=``/``max_chunks=`` are deprecated here."""
+    legacy = [n for n, v in (("backend", backend),
+                             ("max_chunks", max_chunks)) if v is not None]
+    if legacy:
+        warn_legacy_kwargs("kernels.ops.qdt_planes", *legacy)
     api = _api()
     exe = api.compile(api.E.qdt(api.E.input("f")), f.shape, f.dtype,
                       backend, plan=plan, max_chunks=max_chunks,
@@ -842,7 +856,12 @@ def gdt(image, seeds, lamb: float = 1.0, nu: float = 1e6,
 
     Accepts (H, W) or (N, H, W) image/seed stacks of one float dtype;
     pass a ``plan`` with ``schedule="raster"`` for the sweep schedule.
+    ``backend=``/``max_chunks=`` are deprecated here.
     """
+    legacy = [n for n, v in (("backend", backend),
+                             ("max_chunks", max_chunks)) if v is not None]
+    if legacy:
+        warn_legacy_kwargs("kernels.ops.gdt", *legacy)
     image, seeds = torch.as_tensor(image), torch.as_tensor(seeds)
     if not image.dtype.is_floating_point:
         raise TypeError(

@@ -13,7 +13,10 @@ import torch
 
 import repro.api as RA
 import repro_torch.api as TA
+from repro.core import operators as ROPS
 from repro.data.images import blobs
+from repro_torch.core import backend as TB
+from repro_torch.core import morphology as TM
 from repro_torch.core import operators as TOPS
 from repro_torch.kernels import ops as TO
 
@@ -113,7 +116,7 @@ def test_operator_sugar_and_engine_entry_points():
     f = torch.from_numpy(_image((2, 30, 45), np.uint8))
     cpu = dict(device="cpu")
     for backend in ("cuda", "torch"):
-        assert torch.equal(TOPS.hmax(f, 40, backend, **cpu),
+        assert torch.equal(TOPS.hmax(f, 40, backend=backend, **cpu),
                            TOPS.hmax(f, 40, **cpu))
         assert torch.equal(TO.closing(f, 2, backend, **cpu),
                            TO.closing(f, 2, **cpu))
@@ -125,6 +128,79 @@ def test_operator_sugar_and_engine_entry_points():
                        TO.morph_chain(f, 37, "erode", "torch", **cpu))
     assert torch.equal(TO.reconstruct(f // 2, f, "dilate", **cpu),
                        TO.reconstruct(f // 2, f, "dilate", "torch", **cpu))
+
+
+def test_deprecation_shims_warn_and_match():
+    """The reference's ``test_deprecation_shims_warn_and_match`` on the
+    port: the legacy kwargs warn and give the non-legacy result."""
+    rng = np.random.default_rng(0)
+    f = torch.from_numpy(rng.integers(0, 255, (36, 44)).astype(np.uint8))
+    mask = torch.from_numpy(rng.integers(0, 255, (36, 44)).astype(np.uint8))
+    marker = torch.minimum(f, mask)
+    cpu = dict(device="cpu")
+    assert TB.default_backend() == TB.canonicalize_backend(None) == "cuda"
+
+    for backend in TB.BACKENDS:
+        with pytest.warns(DeprecationWarning, match="backend"):
+            legacy = TOPS.hmax(f, 40, backend=backend, **cpu)
+        assert torch.equal(legacy, TOPS.hmax(f, 40, **cpu))
+
+    with pytest.warns(DeprecationWarning, match="max_iters"):
+        trunc = TOPS.hfill(f, max_iters=f.shape[0] * f.shape[1], **cpu)
+    assert torch.equal(trunc, TOPS.hfill(f, **cpu))
+
+    with pytest.warns(DeprecationWarning, match="backend"):
+        legacy = TO.reconstruct(marker, mask, "dilate", backend="torch",
+                                **cpu)
+    assert torch.equal(legacy, TM.dilate_reconstruct(marker, mask))
+
+    with pytest.warns(DeprecationWarning, match="max_chunks"):
+        capped = TO.reconstruct(marker, mask, "dilate",
+                                max_chunks=f.shape[0] * f.shape[1], **cpu)
+    assert torch.equal(capped, TM.dilate_reconstruct(marker, mask))
+
+    with pytest.warns(DeprecationWarning, match="backend"):
+        d, r = TO.qdt_planes(f, backend="torch", **cpu)
+    dw, rw = TOPS.qdt_raw(f)
+    assert torch.equal(d, dw) and torch.equal(r, rw)
+
+    for name in ("erode", "dilate", "opening", "closing"):
+        with pytest.warns(DeprecationWarning, match="backend"):
+            legacy = getattr(TO, name)(f, 2, backend="cuda", **cpu)
+        assert torch.equal(legacy, getattr(TO, name)(f, 2, **cpu))
+    with pytest.warns(DeprecationWarning, match="backend"):
+        TOPS.qdt(f, backend="torch", **cpu)
+    g = f.float()
+    with pytest.warns(DeprecationWarning, match="max_chunks"):
+        legacy = TO.gdt(g, (f > 250).float(), max_chunks=10 ** 4, **cpu)
+    assert torch.equal(legacy, TO.gdt(g, (f > 250).float(), **cpu))
+
+
+#: Legacy truncated calls: the operator, its arguments, the
+#: ``max_iters`` cap of elementary steps and whether it goes positionally.
+TRUNCATED = {
+    "hmax-positional": ("hmax", (40,), 5, True),
+    "dome": ("dome", (40,), 4, False),
+    "hfill": ("hfill", (), 3, False),
+    "raobj": ("raobj", (), 3, False),
+    "obr-positional": ("opening_by_reconstruction", (2,), 6, True),
+}
+
+
+@pytest.mark.parametrize("case", TRUNCATED)
+def test_truncated_legacy_calls_match_reference(case):
+    """``hmax(f, 40, 5)`` and friends run the reference's truncated
+    reconstruction (not the converged one) under its warning."""
+    name, args, cap, positional = TRUNCATED[case]
+    legacy = ((*args, cap), {}) if positional else (args, {"max_iters": cap})
+    f = _image((2, 30, 45), np.uint8)
+    with pytest.warns(DeprecationWarning, match="max_iters"):
+        ref = np.asarray(getattr(ROPS, name)(f, *legacy[0], **legacy[1]))
+    t = torch.from_numpy(f)
+    with pytest.warns(DeprecationWarning, match="max_iters"):
+        got = getattr(TOPS, name)(t, *legacy[0], **legacy[1], device="cpu")
+    assert np.array_equal(ref, got.numpy())
+    assert not torch.equal(got, getattr(TOPS, name)(t, *args, device="cpu"))
 
 
 @pytest.mark.parametrize("specialize", (False, True))

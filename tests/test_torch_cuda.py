@@ -309,7 +309,8 @@ def test_served_stream_on_the_card(cuda):
         assert a.device.type == "cuda" and torch.equal(a, b)
     for f, (hm, er, q) in zip(frames, zip(*[iter(results[1])] * 3)):
         x = torch.from_numpy(f).to(cuda)
-        assert torch.equal(hm, OPS.hmax(x, 40, "torch", device=cuda))
+        assert torch.equal(hm, OPS.hmax(x, 40, backend="torch",
+                                        device=cuda))
         assert torch.equal(er, compile(E.erode(16, E.input("f")), x.shape,
                                        x.dtype, "torch", device=cuda)(x))
         assert torch.equal(q, compile(qdt_l1_expr(), x.shape, x.dtype,

@@ -52,8 +52,13 @@ def _imported_roots(path: pathlib.Path):
 
 
 def test_no_jax_or_reference_import_in_port_sources():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+             + sorted((REPO / "examples").glob("torch_*.py")))
     assert len(files) > 15
+    assert {PORT / "core" / "distributed.py"} | {
+        REPO / "examples" / f"torch_{name}.py" for name in (
+            "quickstart", "serve_geodesic", "segment_scribbles",
+            "distributed_morphology")} <= set(files)
     assert {PORT / "gdt" / "__init__.py", PORT / "gdt" / "reference.py",
             PORT / "kernels" / "gdt_chain.py", PORT / "opt" / "__init__.py",
             PORT / "opt" / "engine.py", PORT / "opt" / "rules.py"} <= set(files)
