@@ -90,7 +90,19 @@ Phases, each of which makes the script exit non-zero when it fails:
    must equal the ``"torch"`` engine's, (b) must equal (a), and each
    counted run (every rank's) must launch ``chain_step`` and
    ``geodesic_chain_step``.  It prints each case's wall ms, K, chunks
-   and halo bytes a chunk; no speed-up is claimed.
+   and halo bytes a chunk; no speed-up is claimed;
+11. language-model serving (``repro_torch.models``,
+   ``repro_torch.launch.serve``; no Pallas kernel lies on this path):
+   gemma-2b (a) at full width cut to 2 layers, float32 activations,
+   weights drawn on the CPU from a seed: prefill and 4 greedy decode
+   steps on the card against the CPU within 1e-4 of max |logits|, the
+   same tokens; (b) at full width and depth, weights drawn on the card:
+   batch 4, a 128-token prompt, 32 greedy decode steps — the last
+   step's logits against ``forward`` over the whole sequence within
+   2e-3 in float32, the bfloat16 error reported, every logit finite;
+   (c) the served bfloat16 model's prefill ms and decode ms/token (CUDA
+   events), tok/s and peak memory beside their bounds, and one profiled
+   prefill and decode pass (device busy and idle share).
 
 The third-to-last line of standard output is the card's ``nvidia-smi``
 name and power limit, the second-to-last ``{"kernels": [...]}``, and
@@ -100,6 +112,7 @@ goes to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import pathlib
 import subprocess
@@ -724,9 +737,11 @@ def profile_run(case: str, fn, card: str) -> dict:
         wall_us = (time.perf_counter() - t0) * 1e6
     split = {"kernels": 0.0, "other": 0.0, "copies": 0.0}
     top: dict = {}
+    n_events = 0
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
+        n_events += 1
         us = ev.time_range.elapsed_us()
         key = ("kernels" if any(k in ev.name for k in PORT_KERNELS) else
                "copies" if "memcpy" in ev.name.lower() else "other")
@@ -737,12 +752,13 @@ def profile_run(case: str, fn, card: str) -> dict:
     busy = sum(split.values())
     if not busy:
         raise AssertionError(f"trace of {case}: no device time")
-    rec = dict(case=case, wall_ms=wall_us / 1e3,
+    rec = dict(case=case, wall_ms=wall_us / 1e3, device_events=n_events,
                busy_ms=busy / 1e3, idle_share=1 - busy / wall_us,
                split_ms={k: v / 1e3 for k, v in split.items()},
                top_ms=dict(sorted(((k, v / 1e3) for k, v in top.items()),
                                   key=lambda kv: -kv[1])[:6]))
-    log(f"trace {rec['case']}: wall {rec['wall_ms']:.2f} ms, device "
+    log(f"trace {rec['case']}: wall {rec['wall_ms']:.2f} ms, "
+        f"{n_events} device events, device "
         f"busy {rec['busy_ms']:.2f} ms (idle share "
         f"{rec['idle_share']:.3f}); split {json.dumps(rec['split_ms'])}; "
         f"top {json.dumps(rec['top_ms'])} ({card})")
@@ -1887,6 +1903,234 @@ def run_distributed(counters, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: language-model serving (repro_torch.models, launch.serve)
+# ---------------------------------------------------------------------------
+
+#: H100 SXM dense bfloat16 tensor-core peak, without sparsity (NVIDIA
+#: H100 data sheet): the rate of the prefill bound.
+BF16_TENSOR_OPS_PER_S = 989e12
+
+#: The slice's model, served at full width and depth.
+LM_ARCH = "gemma-2b"
+#: (b): batch, prompt, greedy decode steps, flash chunk (the launcher's)
+LM_BATCH, LM_PROMPT, LM_GEN, LM_Q_CHUNK = 4, 128, 32, 128
+#: (a): depth, prompt and decode steps of the card-against-CPU check
+LM_CHECK_LAYERS, LM_CHECK_PROMPT, LM_CHECK_STEPS = 2, 32, 4
+#: timed calls after a warm-up
+LM_REPS = 10
+#: decode steps of the profiled pass (the profiler's post-processing of
+#: ~1,400 device events a step takes seconds)
+LM_TRACE_STEPS = 8
+
+
+def lm_config():
+    from repro_torch.configs.registry import get_config
+
+    return get_config(LM_ARCH)
+
+
+def lm_greedy(model, tokens, steps: int, q_chunk: int) -> tuple:
+    """Prefill ``tokens``, then ``steps`` greedy decode steps -> (every
+    logits tensor, prefill's first; the tokens fed)."""
+    from repro_torch.models import decode as DEC
+
+    logits, cache = DEC.prefill(model, tokens, smax=tokens.shape[1] + steps,
+                                q_chunk=q_chunk)
+    out, fed = [logits], []
+    for _ in range(steps):
+        fed.append(logits.argmax(-1))
+        logits, cache = DEC.decode_step(model, cache, fed[-1])
+        out.append(logits)
+    return out, torch.cat(fed, 1)
+
+
+def lm_cross_device(cfg) -> dict:
+    """(a) The full-width model cut to ``LM_CHECK_LAYERS`` layers, in
+    float32 activations, drawn on the CPU from seed 0: prefill and every
+    decode step's logits on the card against the CPU's within 1e-4 of
+    max |logits|, and the same greedy tokens."""
+    from repro_torch.models import model as MDL
+
+    cfg = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS,
+                              activation_dtype="float32")
+    t0 = time.perf_counter()
+    model = MDL.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, LM_CHECK_PROMPT)))
+    runs = {}
+    for dev in ("cpu", DEVICE):
+        model = model.to(dev)          # moves the parameters in place
+        runs[dev] = lm_greedy(model, tokens.to(dev), LM_CHECK_STEPS,
+                              LM_CHECK_PROMPT)
+        sync()
+    (want, want_fed), (got, got_fed) = runs["cpu"], runs[DEVICE]
+    errs = [max_abs_err(g.cpu(), w) / float(w.abs().max())
+            for g, w in zip(got, want)]
+    if max(errs) > 1e-4:
+        raise AssertionError(f"lm serving (a): card != CPU, relative "
+                             f"errors {errs} (bound 1e-4)")
+    if not torch.equal(got_fed.cpu(), want_fed):
+        raise AssertionError(f"lm serving (a): greedy tokens differ: card "
+                             f"{got_fed.tolist()} CPU {want_fed.tolist()}")
+    return dict(layers=cfg.n_layers, prompt=LM_CHECK_PROMPT,
+                steps=LM_CHECK_STEPS, rel_errs=errs,
+                tokens=got_fed.tolist(), seconds=time.perf_counter() - t0)
+
+
+def lm_decode_check(model, kw) -> tuple:
+    """The last decode step's logits against ``forward`` over the prompt
+    and the fed tokens (``tests/test_arch_smoke.py``'s check) -> (its
+    relative error, every logit finite)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import decode as DEC
+    from repro_torch.models import model as MDL
+
+    logits, cache = DEC.prefill(model, smax=LM_PROMPT + LM_GEN,
+                                q_chunk=LM_Q_CHUNK, **kw)
+    fed, last = serve.decode(model, cache, logits.argmax(-1), LM_GEN)
+    full, _ = MDL.forward(model, torch.cat([kw["tokens"], fed], 1),
+                          q_chunk=LM_Q_CHUNK)
+    a, b = full[:, -1], last[:, 0]
+    finite = all(bool(torch.isfinite(t).all()) for t in (logits, last, full))
+    return max_abs_err(a, b) / float(a.abs().max()), finite
+
+
+def lm_bounds(cfg, model) -> dict:
+    """The least times for this run's work: decode reads every bfloat16
+    weight and the cache's filled slots (and writes one) a step, at the
+    HBM rate; prefill's matrix products — the layers' weights over every
+    prompt token, the unembedding of the last token, causal attention —
+    at the dense bfloat16 tensor-core peak."""
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    slot = (cfg.n_layers * 2 * LM_BATCH * cfg.n_kv_heads * cfg.head_dim
+            * model.dtype.itemsize)
+    kv_bytes = sum(slot * (LM_PROMPT + i + 2) for i in range(LM_GEN)) / LM_GEN
+    d, v = cfg.d_model, cfg.vocab_size
+    layer_params = cfg.param_count() - v * d * (1 if cfg.tie_embeddings
+                                                else 2)
+    tokens = LM_BATCH * LM_PROMPT
+    attn = (2 * 2 * LM_BATCH * cfg.n_layers * cfg.n_heads * cfg.head_dim
+            * LM_PROMPT * (LM_PROMPT + 1) // 2)
+    prefill_ops = 2 * layer_params * tokens + 2 * d * v * LM_BATCH + attn
+    return dict(weight_bytes=weight_bytes, kv_bytes_per_token=kv_bytes,
+                decode_bound_ms=(weight_bytes + kv_bytes) / HBM_BYTES_PER_S
+                * 1e3,
+                prefill_ops=prefill_ops,
+                prefill_bound_ms=prefill_ops / BF16_TENSOR_OPS_PER_S * 1e3)
+
+
+def run_lm_serving(card: str) -> dict:
+    """(a) card against CPU at full width, two layers, float32; (b)
+    gemma-2b at full width and depth: decode against ``forward`` in
+    float32 (rel ≤ 2e-3) and in bfloat16 (reported), every logit finite;
+    (c) the served model's prefill ms, decode ms/token, tok/s and peak
+    memory beside their bounds.  Fails on any mismatch or non-finite
+    logit."""
+    from repro_torch.launch import serve
+    from repro_torch.models import decode as DEC
+    from repro_torch.models import model as MDL
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("lm serving: the float32 checks need TF32 off")
+    t_phase = time.perf_counter()
+    held = torch.cuda.memory_allocated()    # what earlier phases still hold
+    cfg = lm_config()
+    out = {"arch": cfg.name, "params": cfg.param_count(),
+           "cross_device": lm_cross_device(cfg)}
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, activation_dtype="float32")
+    masters = MDL.init_params(cfg32, torch.Generator(DEVICE).manual_seed(0),
+                              DEVICE)
+    kw = serve.prompt_inputs(cfg, LM_BATCH, LM_PROMPT, DEVICE)
+    rel32, finite32 = lm_decode_check(masters, kw)
+    del masters
+    torch.cuda.empty_cache()
+    if not finite32 or rel32 > 2e-3:
+        raise AssertionError(f"lm serving (b): float32 decode != forward "
+                             f"(rel {rel32}, bound 2e-3; finite {finite32})")
+
+    model = serve.load_model(cfg, DEVICE, seed=0)   # the same draws
+    rel16, finite16 = lm_decode_check(model, kw)
+    if not finite16:
+        raise AssertionError("lm serving (b): non-finite bfloat16 logits")
+    load_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+
+    prefill_ms = cuda_ms(lambda: DEC.prefill(
+        model, smax=LM_PROMPT + LM_GEN, q_chunk=LM_Q_CHUNK, **kw), LM_REPS)
+    decode_ms = []
+    for _ in range(2):                  # the first pass is the warm-up
+        logits, cache = DEC.prefill(model, smax=LM_PROMPT + LM_GEN,
+                                    q_chunk=LM_Q_CHUNK, **kw)
+        sync()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fed, last = serve.decode(model, cache, logits.argmax(-1), LM_GEN)
+        stop.record()
+        stop.synchronize()
+        decode_ms.append(start.elapsed_time(stop) / LM_GEN)
+        if not bool(torch.isfinite(last).all()):
+            raise AssertionError("lm serving (c): non-finite logits")
+    peak = torch.cuda.max_memory_allocated()
+    bounds = lm_bounds(cfg, model)
+    logits, cache = DEC.prefill(model, smax=LM_PROMPT + LM_GEN,
+                                q_chunk=LM_Q_CHUNK, **kw)
+    traces = [
+        profile_run(f"lm prefill {LM_BATCH}x{LM_PROMPT}", lambda: DEC.prefill(
+            model, smax=LM_PROMPT + LM_GEN, q_chunk=LM_Q_CHUNK, **kw), card),
+        profile_run(f"lm decode {LM_TRACE_STEPS} steps", lambda: serve.decode(
+            model, {"layers": [{n: t.clone() for n, t in e.items()}
+                               for e in cache["layers"]],
+                    "pos": cache["pos"]}, logits.argmax(-1), LM_TRACE_STEPS),
+            card)]
+    out.update(
+        batch=LM_BATCH, prompt=LM_PROMPT, gen=LM_GEN, q_chunk=LM_Q_CHUNK,
+        decode_vs_forward_rel_float32=rel32,
+        decode_vs_forward_rel_bfloat16=rel16, load_and_check_s=load_s,
+        prefill_ms=prefill_ms, decode_ms_per_token=decode_ms[-1],
+        decode_warmup_ms_per_token=decode_ms[0],
+        tokens_per_s=LM_BATCH * 1e3 / decode_ms[-1], peak_bytes=peak,
+        held_before_bytes=held,
+        sample_tokens=fed[0, :10].tolist(), traces=traces, **bounds)
+    del model, cache, logits, last
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+
+    x = out["cross_device"]
+    log(f"lm serving (a) {cfg.name} at {x['layers']} layers, float32, "
+        f"prompt {x['prompt']}, {x['steps']} decode steps: card equals "
+        f"CPU within {max(x['rel_errs']):.2e} of max |logits| (bound "
+        f"1e-4), the same greedy tokens {x['tokens'][0]} "
+        f"({x['seconds']:.1f} s) ({card})")
+    log(f"lm serving (b) {cfg.name} full width and depth ({out['params']} "
+        f"parameters), batch {LM_BATCH}, prompt {LM_PROMPT}, {LM_GEN} "
+        f"decode steps: decode vs forward rel {rel32:.2e} in float32 "
+        f"(bound 2e-3), {rel16:.2e} in bfloat16 (no bound); every logit "
+        f"finite ({card})")
+    log(f"lm serving (c) prefill {prefill_ms:.3f} ms (bound "
+        f"{out['prefill_bound_ms']:.3f} ms: {out['prefill_ops']:.4g} "
+        f"bfloat16 operations at {BF16_TENSOR_OPS_PER_S:.4g}/s) ({card})")
+    log(f"lm serving (c) decode {out['decode_ms_per_token']:.3f} ms/token "
+        f"(warm-up pass {decode_ms[0]:.3f}), {out['tokens_per_s']:.1f} "
+        f"tok/s (bound {out['decode_bound_ms']:.3f} ms/token: "
+        f"{out['weight_bytes']} weight bytes + "
+        f"{out['kv_bytes_per_token']:.0f} cache bytes a token at "
+        f"{HBM_BYTES_PER_S:.4g} B/s) ({card})")
+    log(f"lm serving (c) peak memory {peak - held} bytes "
+        f"(torch.cuda.max_memory_allocated over the timed serving, the "
+        f"bfloat16 model included, less the {held} bytes earlier phases "
+        f"held); "
+        f"sample token ids {out['sample_tokens']}; phase "
+        f"{out['seconds']:.1f} s ({card})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -1947,6 +2191,7 @@ def main() -> int:
     verifier = run_verifier(smi)
     baselines = run_baselines(images, smi)
     distributed = run_distributed(counters, smi)
+    lm_serving = run_lm_serving(smi)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1957,7 +2202,8 @@ def main() -> int:
                        for r in rows],
          "traces": traces, "kernels": timing, "serving": serving,
          "continuous": continuous, "verifier": verifier,
-         "baselines": baselines, "distributed": distributed},
+         "baselines": baselines, "distributed": distributed,
+         "lm_serving": lm_serving},
         indent=1))
     log(smi)
     log(json.dumps({"kernels": [

@@ -1,0 +1,223 @@
+"""Attention: GQA/MQA/MHA with RoPE, flash-style chunked softmax (memory
+O(S·chunk), never materialising the (S, S) logits), sliding-window band
+attention, cross-attention, and single-token decode against a KV cache
+— the port of ``repro/models/attention.py``.
+
+The reference's flash path is plain ``lax``: one scan over a static
+list of (q-block, kv-block) tiles with an online softmax.  This is the
+same algorithm in plain PyTorch: a Python loop over the same tile list,
+with the same masks, ``NEG_INF`` and ``1e-37`` guards, and the same
+dtype at each step.  Forward only: the flash backward comes with the
+training slice.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.models.layers import RMSNorm, normal_init_, param, rope
+
+NEG_INF = -1e30
+
+
+class AttnDims(NamedTuple):
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+
+
+class Attention(nn.Module):
+    """The projections of one attention block: ``wq``/``wk``/``wv``/``wo``
+    in ``(d_in, d_out)`` layout, optional QKV biases and QK norms."""
+
+    def __init__(self, d: int, dims: AttnDims, qkv_bias: bool = False,
+                 qk_norm: bool = False, device=None, dtype=torch.float32):
+        super().__init__()
+        h, kv, hd = dims
+        self.dims = dims
+        self.wq = param((d, h * hd), device, dtype)
+        self.wk = param((d, kv * hd), device, dtype)
+        self.wv = param((d, kv * hd), device, dtype)
+        self.wo = param((h * hd, d), device, dtype)
+        self.bq = self.bk = self.bv = None
+        if qkv_bias:
+            self.bq = param((h * hd,), device, dtype)
+            self.bk = param((kv * hd,), device, dtype)
+            self.bv = param((kv * hd,), device, dtype)
+        self.q_norm = self.k_norm = None
+        if qk_norm:
+            self.q_norm = RMSNorm(hd, device=device, dtype=dtype)
+            self.k_norm = RMSNorm(hd, device=device, dtype=dtype)
+
+    def init_(self, generator) -> None:
+        for w in (self.wq, self.wk, self.wv, self.wo):
+            normal_init_(w, generator)
+        with torch.no_grad():
+            for b in (self.bq, self.bk, self.bv):
+                if b is not None:
+                    b.zero_()
+        for norm in (self.q_norm, self.k_norm):
+            if norm is not None:
+                norm.init_()
+
+
+def qkv(p: Attention, x: torch.Tensor, positions: torch.Tensor,
+        rope_theta: float):
+    """x: (B, S, D) -> q (B, S, H, hd), k, v (B, S, KV, hd), QK-normed
+    (with the norm's default eps, as the reference) and rotated."""
+    h, kv_h, hd = p.dims
+    b, s, _ = x.shape
+    q = x @ p.wq
+    k = x @ p.wk
+    v = x @ p.wv
+    if p.bq is not None:
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    q = q.reshape(b, s, h, hd)
+    k = k.reshape(b, s, kv_h, hd)
+    v = v.reshape(b, s, kv_h, hd)
+    if p.q_norm is not None:
+        q = p.q_norm(q)
+        k = p.k_norm(k)
+    if rope_theta:
+        q = rope(q, positions, rope_theta)
+        k = rope(k, positions, rope_theta)
+    return q, k, v
+
+
+# ---------------------------------------------------------------------------
+# flash attention (chunked online softmax)
+# ---------------------------------------------------------------------------
+
+
+def _block_attend(q, k, v, qpos, kpos, scale, causal, window, kv_len):
+    """One (q-block, kv-block) tile.  q: (B, qc, KV, G, hd); k, v:
+    (B, kc, KV, hd).  Returns the tile's row max, sum of exponentials
+    and exp-weighted values for the online softmax."""
+    s = torch.einsum("bqkgd,bskd->bkgqs", q, k).float() * scale
+    mask = (kpos < kv_len)[None, :]
+    if causal:
+        mask = mask & (qpos[:, None] >= kpos[None, :])
+    if window is not None:
+        mask = mask & (qpos[:, None] - kpos[None, :] < window)
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(-1)                                           # (B,KV,G,qc)
+    p = torch.exp(s - m[..., None])
+    p = torch.where(mask, p, 0.0)
+    l = p.sum(-1)                                            # (B,KV,G,qc)
+    pv = torch.einsum("bkgqs,bskd->bkgqd", p.to(v.dtype), v)
+    return m, l, pv
+
+
+def flash_tiles(nq: int, nk: int, causal: bool,
+                window: int | None) -> list[tuple[int, int, int]]:
+    """The static tile list: exactly the (q-block, kv-block, valid)
+    triples that carry an unmasked entry — the lower triangle for causal
+    attention, a two-block band for a sliding window (block 0's first
+    tile is a placeholder, ``valid`` 0), the full grid for cross
+    attention."""
+    pairs = []
+    for qi in range(nq):
+        if not causal:
+            pairs += [(qi, ki, 1) for ki in range(nk)]
+        elif window is not None:
+            pairs.append((qi, qi - 1, 1) if qi > 0 else (qi, 0, 0))
+            pairs.append((qi, qi, 1))
+        else:
+            pairs += [(qi, ki, 1) for ki in range(qi + 1)]
+    return pairs
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    q_chunk: int = 1024,
+    kv_chunk: int = 1024,
+) -> torch.Tensor:
+    """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) -> (B, Sq, H, hd).
+
+    Query head ``h`` attends with KV head ``h // (H // KV)``.  A sliding
+    window needs ``window <= kv_chunk == q_chunk`` (``ValueError``
+    otherwise, where the reference asserts)."""
+    b, sq0, h, hd = q.shape
+    sk0, kv_h = k.shape[1], k.shape[2]
+    g = h // kv_h
+    scale = 1.0 / math.sqrt(hd)
+    q_chunk = min(q_chunk, sq0)
+    kv_chunk = min(kv_chunk, sk0)
+    if window is not None and not (window <= kv_chunk and
+                                   q_chunk == kv_chunk):
+        raise ValueError(
+            f"band path needs window <= kv_chunk == q_chunk, got window="
+            f"{window}, kv_chunk={kv_chunk}, q_chunk={q_chunk}")
+    # pad to chunk multiples; padded keys are masked via the kv length,
+    # padded query rows are sliced off the output
+    sq = math.ceil(sq0 / q_chunk) * q_chunk
+    sk = math.ceil(sk0 / kv_chunk) * kv_chunk
+    if sq != sq0:
+        q = F.pad(q, (0, 0, 0, 0, 0, sq - sq0))
+    if sk != sk0:
+        k = F.pad(k, (0, 0, 0, 0, 0, sk - sk0))
+        v = F.pad(v, (0, 0, 0, 0, 0, sk - sk0))
+    nq, nk = sq // q_chunk, sk // kv_chunk
+
+    dev = q.device
+    qb = q.reshape(b, nq, q_chunk, kv_h, g, hd)
+    m = torch.full((nq, b, kv_h, g, q_chunk), NEG_INF, device=dev)
+    l = torch.zeros((nq, b, kv_h, g, q_chunk), device=dev)
+    acc = torch.zeros((nq, b, kv_h, g, q_chunk, hd), device=dev)
+    qrange = torch.arange(q_chunk, device=dev)
+    krange = torch.arange(kv_chunk, device=dev)
+    for qi, ki, valid in flash_tiles(nq, nk, causal, window):
+        kt = k[:, ki * kv_chunk:(ki + 1) * kv_chunk]
+        vt = v[:, ki * kv_chunk:(ki + 1) * kv_chunk]
+        bm, bl, bpv = _block_attend(qb[:, qi], kt, vt, qi * q_chunk + qrange,
+                                    ki * kv_chunk + krange, scale, causal,
+                                    window, sk0)
+        if not valid:
+            bm = torch.full_like(bm, NEG_INF)
+        m_new = torch.maximum(m[qi], bm)
+        alpha = torch.exp(m[qi] - m_new)
+        beta = torch.exp(bm - m_new)
+        l[qi] = l[qi] * alpha + bl * beta
+        acc[qi] = acc[qi] * alpha[..., None] + bpv.float() * beta[..., None]
+        m[qi] = m_new
+    out = acc / torch.clamp(l, min=1e-37)[..., None]
+    # (nq, B, KV, G, qc, hd) -> (B, Sq, H, hd)
+    out = out.permute(1, 0, 4, 2, 3, 5).reshape(b, sq, h, hd)
+    return out.to(q.dtype)[:, :sq0]
+
+
+# ---------------------------------------------------------------------------
+# decode (single token against a cache)
+# ---------------------------------------------------------------------------
+
+
+def decode_attention(
+    q: torch.Tensor,          # (B, 1, H, hd)
+    k_cache: torch.Tensor,    # (B, Smax, KV, hd)
+    v_cache: torch.Tensor,
+    pos: int,                 # index of the current token
+    window: int | None = None,
+) -> torch.Tensor:
+    b, smax, kv_h, hd = k_cache.shape
+    h = q.shape[2]
+    g = h // kv_h
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(b, kv_h, g, hd)
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache).float() * scale
+    idx = torch.arange(smax, device=q.device)
+    mask = idx <= pos
+    if window is not None:
+        mask = mask & (idx > pos - window)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype), v_cache)
+    return out.reshape(b, 1, h, hd)

@@ -1,0 +1,51 @@
+"""The reference's parameter trees in the port's layout.
+
+The reference keeps a stack's layers as scanned super-blocks —
+``blocks`` (a tuple of one dict a layer of the period, each leaf with a
+leading ``n_groups`` axis) and an unrolled ``tail`` list
+(``layer_plan``) — where the port keeps one module a layer.  Layer
+``g·period + j`` is ``blocks[j]`` at index ``g``; the tail follows.
+Leaves keep their names and layout, so every leaf copies as it is.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.model import layer_plan
+
+
+def _flatten(tree, prefix: str = "") -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flatten(v, f"{prefix}{k}."))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def reference_layers(stack: dict, cfg: ModelConfig) -> list[dict]:
+    """A reference ``{"blocks", "tail"}`` stack (parameters or cache),
+    as one flat ``{leaf path: array}`` dict a layer in layer order."""
+    period, n_groups, tail_kinds = layer_plan(cfg)
+    layers = [
+        {k: np.asarray(v)[g] for k, v in _flatten(stack["blocks"][j]).items()}
+        for g in range(n_groups) for j in range(period)
+    ]
+    layers += [{k: np.asarray(v) for k, v in _flatten(entry).items()}
+               for entry in stack["tail"][:len(tail_kinds)]]
+    return layers
+
+
+def params_from_reference(tree: dict, cfg: ModelConfig) -> dict:
+    """The reference's parameter tree (numpy arrays) as the port's
+    ``Model`` state dict of CPU tensors, for
+    ``Model(cfg, device="meta").load_state_dict(state, assign=True)``."""
+    state = {"embed.table": tree["embed"]["table"],
+             "final_norm.scale": tree["final_norm"]["scale"]}
+    if "lm_head" in tree:
+        state["lm_head.w"] = tree["lm_head"]["w"]
+    for i, layer in enumerate(reference_layers(tree["decoder"], cfg)):
+        state.update({f"layers.{i}.{k}": v for k, v in layer.items()})
+    return {k: torch.from_numpy(np.array(v)) for k, v in state.items()}

@@ -1,0 +1,238 @@
+"""Config-driven decoder LM for the attention layer kinds — the port of
+``repro/models/model.py``.
+
+The reference stacks super-blocks of one layer-kind period under
+``lax.scan`` (``layer_plan``) with an unrolled tail.  The port holds
+the layers in an ``nn.ModuleList`` in the reference's layer order and
+runs them in a Python loop: layer ``g·period + j`` of the reference's
+``blocks[j]`` at index ``g`` is ``model.layers[g·period + j]`` here,
+and the tail follows (``repro_torch.models.convert`` maps one onto the
+other).
+
+This slice builds the attention kinds (``attn``, ``attn_local``,
+``attn_global``) with a dense FFN.  A configuration that needs MoE,
+Mamba2, xLSTM or an encoder raises ``NotImplementedError`` naming the
+later slice of ``ROADMAP.md`` that ports it.  ``loss_fn`` waits for the
+training slice.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.backend import resolve_device
+from repro_torch.models import attention as A
+from repro_torch.models.layers import (
+    MLP,
+    Embedding,
+    RMSNorm,
+    normal_init_,
+    param,
+    softcap,
+    unembed,
+)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a configuration whose layers a
+    later slice of the port builds (the message names that slice)."""
+    kinds = {cfg.layer_kind(i) for i in range(cfg.n_layers)}
+    if cfg.moe is not None:
+        item = "item 2, MoE (models/moe.py)"
+    elif kinds & {"mamba2"} or cfg.shared_attn_period:
+        item = ("item 3, the recurrent kinds (models/ssm.py with the "
+                "shared attention block)")
+    elif kinds & {"mlstm", "slstm"}:
+        item = "item 3, the recurrent kinds (models/xlstm.py)"
+    elif cfg.is_enc_dec:
+        item = "item 4, encoder-decoder (cross-attention)"
+    else:
+        return
+    raise NotImplementedError(
+        f"{cfg.name}: the port builds the attention layer kinds only; "
+        f"this configuration waits for the language-model queue of "
+        f"ROADMAP.md §1, {item}")
+
+
+# ---------------------------------------------------------------------------
+# structure helpers
+# ---------------------------------------------------------------------------
+
+
+def layer_plan(cfg: ModelConfig, depth: int | None = None):
+    """(period, n_groups, remainder_kinds) of the reference's scan
+    structure; the converter reads its parameter trees through it."""
+    depth = depth if depth is not None else cfg.n_layers
+    kinds = [cfg.layer_kind(i) for i in range(depth)]
+    if cfg.shared_attn_period:
+        period = cfg.shared_attn_period
+    else:
+        period = 1
+        for p in range(1, len(set(kinds)) * 4 + 1):
+            if all(kinds[i] == kinds[i % p] for i in range(depth)):
+                period = p
+                break
+    n_groups = depth // period
+    return period, n_groups, kinds[n_groups * period:]
+
+
+def dims(cfg: ModelConfig) -> A.AttnDims:
+    return A.AttnDims(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+
+
+class DecoderLayer(nn.Module):
+    """norm1 → attention → residual, then norm2 → MLP → residual."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        d = cfg.d_model
+        self.kind = kind
+        self.norm1 = RMSNorm(d, cfg.norm_eps, device, dtype)
+        self.attn = A.Attention(d, dims(cfg), cfg.qkv_bias, cfg.qk_norm,
+                                device, dtype)
+        self.norm2 = self.mlp = None
+        if cfg.d_ff:
+            self.norm2 = RMSNorm(d, cfg.norm_eps, device, dtype)
+            self.mlp = MLP(d, cfg.d_ff, cfg.activation, device, dtype)
+
+    def init_(self, generator) -> None:
+        self.norm1.init_()
+        self.attn.init_(generator)
+        if self.mlp is not None:
+            self.norm2.init_()
+            self.mlp.init_(generator)
+
+
+class Model(nn.Module):
+    """The port's parameter tree: ``embed.table``, ``final_norm.scale``,
+    ``layers.<i>.{norm1,attn,norm2,mlp}.*`` and, untied, ``lm_head.w``.
+    Construction allocates uninitialised parameters (``device="meta"``
+    allocates none); ``init_params`` draws them."""
+
+    def __init__(self, cfg: ModelConfig, device=None, dtype=None):
+        super().__init__()
+        check_supported(cfg)
+        dtype = dtype or getattr(torch, cfg.param_dtype)
+        self.cfg = cfg
+        self.embed = Embedding(cfg.vocab_size, cfg.d_model, device, dtype)
+        self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, device, dtype)
+        self.layers = nn.ModuleList(
+            DecoderLayer(cfg, cfg.layer_kind(i), device, dtype)
+            for i in range(cfg.n_layers))
+        self.lm_head = None
+        if not cfg.tie_embeddings:
+            self.lm_head = nn.ParameterDict(
+                {"w": param((cfg.d_model, cfg.vocab_size), device, dtype)})
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.embed.table.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.table.device
+
+
+def cast_params(model: Model, dtype) -> Model:
+    """Compute-dtype view of the (float32 master) parameters: ``model``
+    itself where every floating parameter already has ``dtype``, else a
+    new ``Model`` holding cast copies.  A server casts once when it
+    loads the model and keeps that copy (the reference casts inside
+    every jitted call, which XLA sees once; done eagerly per decode step
+    at full width it would read and allocate the whole model a
+    token)."""
+    dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    if all(p.dtype == dt for p in model.parameters() if p.is_floating_point()):
+        return model
+    out = Model(model.cfg, device="meta")
+    out.load_state_dict(
+        {k: v.to(dt) if v.is_floating_point() else v
+         for k, v in model.state_dict().items()}, assign=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device=None) -> Model:
+    """A ``Model`` in ``cfg.param_dtype`` drawn from ``generator`` on
+    ``device`` (``None`` is the GPU and raises without one; the
+    generator must live there too): the reference's initialisers'
+    distributions — truncated normal on [-2, 2] over √fan_in, the
+    embedding at std d^-½, norms and biases zero — not their values."""
+    device = resolve_device(device)
+    model = Model(cfg, device=device)
+    model.embed.init_(generator)
+    for layer in model.layers:
+        layer.init_(generator)
+    model.final_norm.init_()
+    if model.lm_head is not None:
+        normal_init_(model.lm_head["w"], generator)
+    return model
+
+
+# ---------------------------------------------------------------------------
+# forward (prefill)
+# ---------------------------------------------------------------------------
+
+
+def attn_sublayer(layer: DecoderLayer, cfg: ModelConfig, x, positions,
+                  q_chunk: int):
+    """One layer over a whole sequence -> (x, k, v) (k, v roped)."""
+    b, s = x.shape[:2]
+    h = layer.norm1(x)
+    q, k, v = A.qkv(layer.attn, h, positions, cfg.rope_theta)
+    window = cfg.sliding_window if layer.kind == "attn_local" else None
+    out = A.flash_attention(q, k, v, causal=True, window=window,
+                            q_chunk=q_chunk, kv_chunk=q_chunk)
+    x = x + out.reshape(b, s, -1) @ layer.attn.wo
+    if layer.mlp is not None:
+        x = x + layer.mlp(layer.norm2(x))
+    return x, k, v
+
+
+def embed_inputs(model: Model, tokens=None, embeds=None) -> torch.Tensor:
+    """The residual stream's input in the activation dtype: the scaled
+    token embedding, or ``embeds`` (the modality-frontend stub)."""
+    adt = getattr(torch, model.cfg.activation_dtype)
+    if embeds is None:
+        return model.embed(tokens).to(adt)
+    return embeds.to(adt)
+
+
+def logits_of(model: Model, x: torch.Tensor) -> torch.Tensor:
+    """Final-normed hidden states -> float32 (soft-capped) logits."""
+    if model.lm_head is None:
+        logits = unembed(model.embed.table, x)
+    else:
+        logits = x @ model.lm_head["w"]
+    return softcap(logits.float(), model.cfg.logit_softcap)
+
+
+@torch.no_grad()
+def forward_hidden(model: Model, tokens=None, *, embeds=None,
+                   q_chunk: int = 1024):
+    """Forward pass up to (and including) the final norm -> (x, aux)."""
+    cfg = model.cfg
+    model = cast_params(model, cfg.activation_dtype)
+    x = embed_inputs(model, tokens, embeds)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    for layer in model.layers:
+        x, _, _ = attn_sublayer(layer, cfg, x, positions, q_chunk)
+    aux = torch.zeros((), device=x.device)
+    return model.final_norm(x), aux
+
+
+@torch.no_grad()
+def forward(model: Model, tokens=None, *, embeds=None, q_chunk: int = 1024):
+    """Full forward pass -> (float32 logits (B, S, V), aux).  ``embeds``
+    bypasses the token embedding.  ``aux`` (the MoE load-balancing loss
+    of the reference) is 0: no layer of this slice has one."""
+    model = cast_params(model, model.cfg.activation_dtype)
+    x, aux = forward_hidden(model, tokens, embeds=embeds, q_chunk=q_chunk)
+    return logits_of(model, x), aux

@@ -72,6 +72,15 @@ def test_no_jax_or_reference_import_in_port_sources():
     assert {PORT / "baselines" / f"{name}.py" for name in (
         "__init__", "naive", "vhgw", "pixel_pump",
         "queue_reconstruction")} <= set(files)
+    assert {PORT / "configs" / f"{name}.py" for name in (
+        "__init__", "base", "registry", "shapes", "gemma_2b", "gemma_7b",
+        "gemma3_27b", "qwen2_5_32b", "chameleon_34b", "deepseek_moe_16b",
+        "arctic_480b", "zamba2_7b", "xlstm_350m",
+        "seamless_m4t_large_v2")} <= set(files)
+    assert {PORT / "models" / f"{name}.py" for name in (
+        "__init__", "layers", "attention", "model", "decode",
+        "convert")} | {PORT / "launch" / "__init__.py",
+                       PORT / "launch" / "serve.py"} <= set(files)
     offenders = [(f.relative_to(REPO).as_posix(), root) for f in files
                  for root in _imported_roots(f)
                  if root in ("jax", "jaxlib", "repro")]
@@ -134,6 +143,26 @@ def test_default_device_is_the_gpu_and_raises_without_one():
         ).device.type == "cpu"
     assert [type(e).__name__ for e in svc._engines.values()] == [
         "SlotEngine"]
+    # the language-model path: its launcher and the model's initialiser
+    from repro_torch.configs.registry import get_reduced
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.models import decode, model
+
+    cfg = get_reduced("gemma-2b")
+    argv = ["--reduced", "--batch", "1", "--prompt-len", "4", "--gen", "1"]
+    for call in (lambda: lm_serve.main(argv),
+                 lambda: lm_serve.load_model(cfg),
+                 lambda: model.init_params(cfg, torch.Generator()),
+                 lambda: decode.init_cache(cfg, 1, 8)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    lm_serve.main(argv + ["--device", "cpu"])
+    lm = model.init_params(cfg, torch.Generator(), device="cpu")
+    assert lm.device.type == "cpu"
+    logits, cache = decode.prefill(lm, torch.zeros((1, 4), dtype=torch.long))
+    assert logits.device.type == "cpu"
+    assert decode.init_cache(cfg, 1, 8, "cpu")["layers"][0]["k"].device.type \
+        == "cpu"
 
 
 def test_chip_smoke_fails_without_a_gpu_or_the_repo(tmp_path):

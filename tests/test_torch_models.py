@@ -1,0 +1,377 @@
+"""The port's language-model serving path (``repro_torch.configs``,
+``repro_torch.models``, ``repro_torch.launch.serve``) against the JAX
+package on the CPU.
+
+For every reduced attention-only configuration (gemma-2b, gemma-7b,
+qwen2.5-32b, gemma3-27b, chameleon-34b) one reference parameter tree,
+its zero leaves (norm scales, QKV biases) perturbed so that they
+matter, goes into both packages (``convert.params_from_reference``);
+the same seeded numpy prompt (embeddings for chameleon) then goes
+through ``forward``, ``prefill`` (logits and every layer's captured
+k/v, mapped through the same layer order) and three ``decode_step``s
+fed the reference's greedy tokens.  gemma3 (period 3: two scanned
+groups and a tail of two) covers the layer order and, at ``smax`` 160
+> 8 × its window of 16, the sliding-window ring buffer; qwen2.5 and
+gemma3 (KV = 2) cover the GQA head grouping.
+
+Tolerances, max |port − reference| against max |reference|: 1e-4 in
+float32 (the reduced configs' activation dtype; measured at most
+5.6e-7 on logits and 1.3e-6 on k/v), 2e-2 for gemma-2b reduced in
+bfloat16 (measured at most 5.1e-3 over its forward, prefill and three
+decode steps).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import registry as ref_registry
+from repro.configs.shapes import cells_for as ref_cells_for
+from repro.models import decode as RD
+from repro.models import model as RM
+from repro_torch.configs import registry
+from repro_torch.configs.shapes import cells_for
+from repro_torch.launch import serve as LS
+from repro_torch.models import convert
+from repro_torch.models import decode as D
+from repro_torch.models import model as M
+
+ATTN_ARCHS = ("gemma-2b", "gemma-7b", "qwen2.5-32b", "gemma3-27b",
+              "chameleon-34b")
+#: configurations a later slice builds, and the ROADMAP.md item it is
+LATER = {"deepseek-moe-16b": "item 2, MoE", "arctic-480b": "item 2, MoE",
+         "zamba2-7b": "item 3, the recurrent kinds",
+         "xlstm-350m": "item 3, the recurrent kinds",
+         "seamless-m4t-large-v2": "item 4, encoder-decoder"}
+B, S, Q_CHUNK, STEPS = 2, 32, 16, 3
+SMAX = {"gemma3-27b": 160}          # > 8 windows: the local layers ring
+TOL, TOL_BF16 = 1e-4, 2e-2
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread while this module runs (several pytest workers
+    on one machine otherwise oversubscribe the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def rel_err(got: torch.Tensor, ref) -> float:
+    ref = np.asarray(ref, dtype=np.float32)
+    got = got.float().numpy()
+    assert got.shape == ref.shape
+    return float(np.abs(got - ref).max() / np.abs(ref).max())
+
+
+def perturbed_params(cfg, seed=0):
+    """The reference's initial parameters as numpy arrays, every norm
+    scale and bias (zero at init) replaced by seeded values."""
+    rng = np.random.default_rng(seed)
+    params = jax.tree.map(np.asarray, RM.init_params(cfg,
+                                                     jax.random.PRNGKey(0)))
+
+    def perturb(path, x):
+        name = jax.tree_util.keystr(path)
+        if name.endswith("['scale']") or name[-6:] in (
+                "['bq']", "['bk']", "['bv']"):
+            return (0.2 * rng.standard_normal(x.shape)).astype(x.dtype)
+        return x
+
+    return jax.tree_util.tree_map_with_path(perturb, params)
+
+
+def port_model(tree, cfg):
+    model = M.Model(cfg, device="meta")
+    model.load_state_dict(convert.params_from_reference(tree, cfg),
+                          assign=True)
+    return model
+
+
+def inputs(cfg):
+    """The reference's and the port's prefill keywords, the same values."""
+    rng = np.random.default_rng(1)
+    if cfg.frontend == "vision":
+        e = rng.standard_normal((B, S, cfg.d_model), dtype=np.float32)
+        return {"embeds": jnp.asarray(e)}, {"embeds": torch.from_numpy(e)}
+    t = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    return {"tokens": jnp.asarray(t)}, {"tokens": torch.from_numpy(t)}
+
+
+def reference_run(cfg) -> dict:
+    """forward, prefill (logits, per-layer k/v) and STEPS greedy decode
+    steps of the reference, with the tokens it fed."""
+    tree = perturbed_params(cfg)
+    params = jax.tree.map(jnp.asarray, tree)
+    rkw, tkw = inputs(cfg)
+    tk = rkw.pop("tokens", None)
+    smax = SMAX.get(cfg.name, S + 4)
+    fwd, _ = jax.jit(lambda p: RM.forward(p, cfg, tk, q_chunk=Q_CHUNK,
+                                          **rkw))(params)
+    logits, cache = jax.jit(lambda p: RD.prefill(
+        p, cfg, tk, smax=smax, q_chunk=Q_CHUNK, **rkw))(params)
+    out = {"tree": tree, "kw": tkw, "smax": smax, "forward": fwd,
+           "prefill": logits, "kv": convert.reference_layers(cache, cfg),
+           "fed": [], "decode": []}
+    step = jax.jit(lambda p, c, t: RD.decode_step(p, cfg, c, t))
+    for _ in range(STEPS):
+        tok = jnp.argmax(logits, -1).astype(jnp.int32)
+        logits, cache = step(params, cache, tok)
+        out["fed"].append(np.array(tok))
+        out["decode"].append(logits)
+    out["pos"] = int(cache["pos"])
+    return out
+
+
+@pytest.fixture(scope="module")
+def reference():
+    """``reference(arch, activation_dtype)`` → the reference's run, each
+    computed once per module."""
+    runs = {}
+
+    def get(arch, activation_dtype="float32"):
+        if (arch, activation_dtype) not in runs:
+            cfg = dataclasses.replace(ref_registry.get_reduced(arch),
+                                      activation_dtype=activation_dtype)
+            runs[arch, activation_dtype] = reference_run(cfg)
+        return runs[arch, activation_dtype]
+
+    return get
+
+
+def port_cfg(arch, activation_dtype="float32"):
+    return dataclasses.replace(registry.get_reduced(arch),
+                               activation_dtype=activation_dtype)
+
+
+# ---------------------------------------------------------------------------
+# configs
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ref_registry.ARCH_IDS)
+def test_configs_equal_the_reference(arch):
+    assert registry.ARCH_IDS == ref_registry.ARCH_IDS
+    for get, ref_get in ((registry.get_config, ref_registry.get_config),
+                         (registry.get_reduced, ref_registry.get_reduced)):
+        cfg, ref = get(arch), ref_get(arch)
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
+        assert cfg.param_count() == ref.param_count()
+        assert cfg.active_param_count() == ref.active_param_count()
+        assert cells_for(cfg) == ref_cells_for(ref)
+        assert ([cfg.layer_kind(i) for i in range(cfg.n_layers)]
+                == [ref.layer_kind(i) for i in range(ref.n_layers)])
+        assert M.layer_plan(cfg) == RM.layer_plan(ref)
+
+
+def test_gemma_2b_is_the_slices_model():
+    cfg = registry.get_config("gemma-2b")
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.head_dim, cfg.d_ff, cfg.vocab_size) == (
+        18, 2048, 8, 1, 256, 16384, 256_000)
+    assert cfg.param_count() == 2_506_096_640
+
+
+@pytest.mark.parametrize("arch", sorted(LATER))
+def test_configs_of_later_slices_raise_naming_their_queue_entry(arch):
+    cfg = registry.get_reduced(arch)
+    for build in (lambda: M.Model(cfg, device="meta"),
+                  lambda: M.init_params(cfg, torch.Generator(), "cpu"),
+                  lambda: D.init_cache(cfg, 1, 8, device="cpu")):
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP.md §1, {LATER[arch]}"):
+            build()
+
+
+# ---------------------------------------------------------------------------
+# the model against the reference
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
+def test_forward_equals_reference(arch, reference):
+    ref = reference(arch)
+    cfg = port_cfg(arch)
+    logits, aux = M.forward(port_model(ref["tree"], cfg), q_chunk=Q_CHUNK,
+                            **ref["kw"])
+    assert rel_err(logits, ref["forward"]) <= TOL
+    assert float(aux) == 0.0
+
+
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
+def test_prefill_logits_and_every_layers_kv_equal_reference(arch, reference):
+    ref = reference(arch)
+    cfg = port_cfg(arch)
+    logits, cache = D.prefill(port_model(ref["tree"], cfg), smax=ref["smax"],
+                              q_chunk=Q_CHUNK, **ref["kw"])
+    assert rel_err(logits, ref["prefill"]) <= TOL
+    assert cache["pos"] == S
+    assert len(cache["layers"]) == len(ref["kv"]) == cfg.n_layers
+    for i, (got, want) in enumerate(zip(cache["layers"], ref["kv"])):
+        for name in ("k", "v"):
+            assert rel_err(got[name], want[name]) <= TOL, (i, name)
+    if cfg.sliding_window:      # gemma3: the local layers hold a ring
+        slots = [e["k"].shape[1] for e in cache["layers"]]
+        assert slots == [16, 16, 160, 16, 16, 160, 16, 16]
+
+
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
+def test_decode_steps_equal_reference(arch, reference):
+    ref = reference(arch)
+    cfg = port_cfg(arch)
+    model = port_model(ref["tree"], cfg)
+    _, cache = D.prefill(model, smax=ref["smax"], q_chunk=Q_CHUNK,
+                         **ref["kw"])
+    for tok, want in zip(ref["fed"], ref["decode"]):
+        logits, cache = D.decode_step(model, cache, torch.from_numpy(tok))
+        assert rel_err(logits, want) <= TOL
+    assert cache["pos"] == ref["pos"] == S + STEPS
+
+
+def test_bfloat16_activations_equal_reference_within_tolerance(reference):
+    """gemma-2b reduced with bfloat16 activations over float32 masters:
+    the port casts them as the reference does, rounding at the same
+    points (√d in bfloat16, scores to float32, p to bfloat16, ...)."""
+    ref = reference("gemma-2b", "bfloat16")
+    cfg = port_cfg("gemma-2b", "bfloat16")
+    model = port_model(ref["tree"], cfg)
+    assert model.dtype == torch.float32
+    logits, _ = M.forward(model, q_chunk=Q_CHUNK, **ref["kw"])
+    errs = [rel_err(logits, ref["forward"])]
+    served = M.cast_params(model, cfg.activation_dtype)
+    logits, cache = D.prefill(served, smax=ref["smax"], q_chunk=Q_CHUNK,
+                              **ref["kw"])
+    errs.append(rel_err(logits, ref["prefill"]))
+    assert cache["layers"][0]["k"].dtype == torch.bfloat16
+    for tok, want in zip(ref["fed"], ref["decode"]):
+        logits, cache = D.decode_step(served, cache, torch.from_numpy(tok))
+        errs.append(rel_err(logits, want))
+    assert max(errs) <= TOL_BF16, errs
+
+
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
+def test_init_cache_matches_reference(arch):
+    cfg, ref_cfg = registry.get_reduced(arch), ref_registry.get_reduced(arch)
+    smax = SMAX.get(arch, S + 4)
+    cache = D.init_cache(cfg, B, smax, device="cpu")
+    want = convert.reference_layers(RD.init_cache(ref_cfg, B, smax), cfg)
+    assert cache["pos"] == 0
+    assert [{n: (tuple(e[n].shape), str(e[n].dtype)) for n in "kv"}
+            for e in cache["layers"]] == [
+        {n: (w[n].shape, "torch." + str(w[n].dtype)) for n in "kv"}
+        for w in want]
+    assert not any(e[n].any() for e in cache["layers"] for n in "kv")
+
+
+def test_decode_past_smax_raises():
+    """The reference's ``dynamic_update_slice`` clamps a write at
+    ``pos >= smax`` onto the last slot; the port refuses it, and leaves
+    the cache as it was."""
+    cfg = registry.get_reduced("gemma3-27b")
+    model = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.zeros((1, 20), dtype=torch.long)
+    logits, cache = D.prefill(model, tokens, smax=21, q_chunk=16)
+    logits, cache = D.decode_step(model, cache, logits.argmax(-1))
+    assert cache["pos"] == 21
+    before = [e["k"].clone() for e in cache["layers"]]
+    with pytest.raises(ValueError, match="past the cache's smax 21"):
+        D.decode_step(model, cache, logits.argmax(-1))
+    assert cache["pos"] == 21
+    assert all(torch.equal(a, e["k"]) for a, e in zip(before,
+                                                      cache["layers"]))
+    with pytest.raises(ValueError, match="shorter than the prompt"):
+        D.prefill(model, tokens, smax=19, q_chunk=16)
+
+
+# ---------------------------------------------------------------------------
+# init, cast, converter, launcher
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["gemma3-27b", "qwen2.5-32b"])
+def test_init_params_draws_the_reference_distribution(arch):
+    cfg = registry.get_reduced(arch)
+    model = M.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    again = M.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    ref = convert.params_from_reference(
+        jax.tree.map(np.asarray, RM.init_params(
+            ref_registry.get_reduced(arch), jax.random.PRNGKey(0))), cfg)
+    state = model.state_dict()
+    assert {k: tuple(v.shape) for k, v in state.items()} == {
+        k: tuple(v.shape) for k, v in ref.items()}
+    for name, p in state.items():
+        assert p.dtype == torch.float32
+        assert torch.equal(p, again.state_dict()[name])
+        if name.endswith(("scale", ".bq", ".bk", ".bv")):
+            assert not p.any(), name
+            continue
+        std = (cfg.d_model ** -0.5 if name == "embed.table"
+               else p.shape[0] ** -0.5)
+        assert float(p.abs().max()) <= 2 * std, name
+        # a truncated normal on [-2, 2] has std 0.880
+        assert abs(float(p.std()) / std - 0.880) < 0.05, name
+
+
+def test_cast_params_casts_once_and_keeps_the_masters():
+    cfg = registry.get_reduced("qwen2.5-32b")
+    model = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert M.cast_params(model, "float32") is model
+    served = M.cast_params(model, "bfloat16")
+    assert served is not model and served.cfg is cfg
+    assert all(p.dtype == torch.bfloat16 for p in served.parameters())
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    assert M.cast_params(served, torch.bfloat16) is served
+    for (name, a), b in zip(model.state_dict().items(),
+                            served.state_dict().values()):
+        assert torch.equal(a.to(torch.bfloat16), b), name
+
+
+def test_converter_follows_the_reference_layer_order():
+    """gemma3 reduced: 8 layers of period 3 — scanned groups 0 and 1 of
+    (local, local, global), then a tail of two local layers."""
+    cfg = registry.get_reduced("gemma3-27b")
+    assert M.layer_plan(cfg) == (3, 2, ["attn_local", "attn_local"])
+    tree = jax.tree.map(np.asarray, RM.init_params(
+        ref_registry.get_reduced("gemma3-27b"), jax.random.PRNGKey(0)))
+    state = convert.params_from_reference(tree, cfg)
+    blocks, tail = tree["decoder"]["blocks"], tree["decoder"]["tail"]
+    for i in range(cfg.n_layers):
+        g, j = divmod(i, 3)
+        want = (blocks[j]["attn"]["wq"][g] if g < 2
+                else tail[i - 6]["attn"]["wq"])
+        assert np.array_equal(state[f"layers.{i}.attn.wq"].numpy(), want)
+    model = port_model(tree, cfg)
+    assert [layer.kind for layer in model.layers] == [
+        cfg.layer_kind(i) for i in range(8)]
+
+
+def test_launcher_serves_on_the_cpu(capsys):
+    LS.main(["--arch", "gemma-2b", "--reduced", "--batch", "2",
+             "--prompt-len", "8", "--gen", "4", "--device", "cpu"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == "arch=gemma-2b batch=2 prompt=8 gen=4 device=cpu"
+    assert out[1].startswith("prefill: ") and "ms/token" in out[1]
+    assert out[2].startswith("sample token ids: [")
+
+
+def test_launcher_functions_generate_greedily():
+    """``decode`` feeds each step the previous step's argmax, and its
+    last logits equal ``forward`` over the prompt and the fed tokens."""
+    cfg = port_cfg("chameleon-34b")
+    model = LS.load_model(cfg, "cpu")
+    kw = LS.prompt_inputs(cfg, B, 12, "cpu")
+    assert kw["embeds"].shape == (B, 12, cfg.d_model)
+    logits, cache = D.prefill(model, smax=16, q_chunk=8, **kw)
+    fed, last = LS.decode(model, cache, logits.argmax(-1), 4)
+    assert fed.shape == (B, 4) and cache["pos"] == 16
+    assert torch.equal(fed[:, :1], logits.argmax(-1))
+    tokens = LS.prompt_inputs(port_cfg("gemma-2b"), B, 12, "cpu")["tokens"]
+    model = LS.load_model(port_cfg("gemma-2b"), "cpu")
+    logits, cache = D.prefill(model, tokens, smax=16, q_chunk=8)
+    fed, last = LS.decode(model, cache, logits.argmax(-1), 4)
+    full, _ = M.forward(model, torch.cat([tokens, fed], 1), q_chunk=8)
+    assert rel_err(last[:, 0], full[:, -1].numpy()) < 2e-3
