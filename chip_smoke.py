@@ -102,7 +102,23 @@ Phases, each of which makes the script exit non-zero when it fails:
    2e-3 in float32, the bfloat16 error reported, every logit finite;
    (c) the served bfloat16 model's prefill ms and decode ms/token (CUDA
    events), tok/s and peak memory beside their bounds, and one profiled
-   prefill and decode pass (device busy and idle share).
+   prefill and decode pass (device busy and idle share);
+12. MoE serving (``repro_torch.models.moe``; no Pallas kernel lies on
+   this path either), after phase 11 has freed its model:
+   deepseek-moe-16b (a) at full width cut to 2 layers, float32, weights
+   drawn on the CPU: prefill and 4 greedy steps on the card against the
+   CPU within 1e-4 of max |logits|, the same tokens and the same
+   experts for every token in every layer; (b) at ``capacity_factor``
+   E/K (nothing drops, so ``forward`` routes as prefill and decode do):
+   decode against ``forward`` within 2e-3 in float32 at 14 layers (28
+   float32 layers are 67.5 GB), and in bfloat16 at full depth
+   (reported), every logit finite; (c) the served bfloat16 model at
+   full depth, configuration as written: phase 11's timings and trace,
+   the served prefill's dropped assignments, and the decode bound
+   counted from the experts the run's routing chose (beside the read of
+   every expert the dense products make); (d) arctic-480b at full
+   width, one layer, bfloat16 (35 layers fit no single card): 8 decode
+   steps, every logit finite, decode against ``forward`` reported.
 
 The third-to-last line of standard output is the card's ``nvidia-smi``
 name and power limit, the second-to-last ``{"kernels": [...]}``, and
@@ -112,6 +128,7 @@ goes to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import pathlib
@@ -1930,6 +1947,26 @@ def lm_config():
     return get_config(LM_ARCH)
 
 
+@contextlib.contextmanager
+def recorded_routes():
+    """Every ``repro_torch.models.moe.route`` result while the block runs,
+    in call order (a layer's chunks, layer by layer): the MoE phase
+    reads its experts and dropped assignments from them after a run."""
+    from repro_torch.models import moe as MOE
+
+    calls, route = [], MOE.route
+
+    def spy(*args):
+        calls.append(route(*args))
+        return calls[-1]
+
+    MOE.route = spy
+    try:
+        yield calls
+    finally:
+        MOE.route = route
+
+
 def lm_greedy(model, tokens, steps: int, q_chunk: int) -> tuple:
     """Prefill ``tokens``, then ``steps`` greedy decode steps -> (every
     logits tensor, prefill's first; the tokens fed)."""
@@ -1949,7 +1986,8 @@ def lm_cross_device(cfg) -> dict:
     """(a) The full-width model cut to ``LM_CHECK_LAYERS`` layers, in
     float32 activations, drawn on the CPU from seed 0: prefill and every
     decode step's logits on the card against the CPU's within 1e-4 of
-    max |logits|, and the same greedy tokens."""
+    max |logits|, the same greedy tokens and, for a MoE, the same
+    experts for every token in every layer."""
     from repro_torch.models import model as MDL
 
     cfg = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS,
@@ -1958,13 +1996,21 @@ def lm_cross_device(cfg) -> dict:
     model = MDL.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (1, LM_CHECK_PROMPT)))
-    runs = {}
+    runs, routes = {}, {}
     for dev in ("cpu", DEVICE):
         model = model.to(dev)          # moves the parameters in place
-        runs[dev] = lm_greedy(model, tokens.to(dev), LM_CHECK_STEPS,
-                              LM_CHECK_PROMPT)
-        sync()
+        with recorded_routes() as calls:
+            runs[dev] = lm_greedy(model, tokens.to(dev), LM_CHECK_STEPS,
+                                  LM_CHECK_PROMPT)
+            sync()
+        routes[dev] = [r.gate_idx.cpu() for r in calls]
     (want, want_fed), (got, got_fed) = runs["cpu"], runs[DEVICE]
+    flips = [(i, (g != w).any(-1).nonzero().tolist())
+             for i, (g, w) in enumerate(zip(routes[DEVICE], routes["cpu"]))
+             if not torch.equal(g, w)]
+    if flips or len(routes["cpu"]) != len(routes[DEVICE]):
+        raise AssertionError(f"lm serving (a): experts differ between card "
+                             f"and CPU (route call, [row, token]): {flips}")
     errs = [max_abs_err(g.cpu(), w) / float(w.abs().max())
             for g, w in zip(got, want)]
     if max(errs) > 1e-4:
@@ -1975,20 +2021,21 @@ def lm_cross_device(cfg) -> dict:
                              f"{got_fed.tolist()} CPU {want_fed.tolist()}")
     return dict(layers=cfg.n_layers, prompt=LM_CHECK_PROMPT,
                 steps=LM_CHECK_STEPS, rel_errs=errs,
-                tokens=got_fed.tolist(), seconds=time.perf_counter() - t0)
+                tokens=got_fed.tolist(), route_calls=len(routes["cpu"]),
+                seconds=time.perf_counter() - t0)
 
 
-def lm_decode_check(model, kw) -> tuple:
-    """The last decode step's logits against ``forward`` over the prompt
-    and the fed tokens (``tests/test_arch_smoke.py``'s check) -> (its
-    relative error, every logit finite)."""
+def lm_decode_check(model, kw, steps: int = LM_GEN) -> tuple:
+    """The last of ``steps`` decode steps' logits against ``forward``
+    over the prompt and the fed tokens (``tests/test_arch_smoke.py``'s
+    check) -> (its relative error, every logit finite)."""
     from repro_torch.launch import serve
     from repro_torch.models import decode as DEC
     from repro_torch.models import model as MDL
 
-    logits, cache = DEC.prefill(model, smax=LM_PROMPT + LM_GEN,
+    logits, cache = DEC.prefill(model, smax=LM_PROMPT + steps,
                                 q_chunk=LM_Q_CHUNK, **kw)
-    fed, last = serve.decode(model, cache, logits.argmax(-1), LM_GEN)
+    fed, last = serve.decode(model, cache, logits.argmax(-1), steps)
     full, _ = MDL.forward(model, torch.cat([kw["tokens"], fed], 1),
                           q_chunk=LM_Q_CHUNK)
     a, b = full[:, -1], last[:, 0]
@@ -1996,29 +2043,109 @@ def lm_decode_check(model, kw) -> tuple:
     return max_abs_err(a, b) / float(a.abs().max()), finite
 
 
-def lm_bounds(cfg, model) -> dict:
+def lm_bounds(cfg, model, experts_read: float | None = None) -> dict:
     """The least times for this run's work: decode reads every bfloat16
     weight and the cache's filled slots (and writes one) a step, at the
-    HBM rate; prefill's matrix products — the layers' weights over every
-    prompt token, the unembedding of the last token, causal attention —
-    at the dense bfloat16 tensor-core peak."""
+    HBM rate; prefill's matrix products — the layers' weights a token
+    touches over every prompt token, the unembedding of the last token,
+    causal attention — at the dense bfloat16 tensor-core peak.
+
+    For a MoE, ``experts_read`` is the distinct routed experts a decode
+    step's routing chose, summed over the layers (counted from the
+    run): the step reads those, the shared experts and every other
+    weight but the embedding table, of which it gathers ``LM_BATCH``
+    rows.  ``all_experts_ms`` is the read of every weight the port's
+    dense expert products make instead."""
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in model.parameters())
     slot = (cfg.n_layers * 2 * LM_BATCH * cfg.n_kv_heads * cfg.head_dim
             * model.dtype.itemsize)
     kv_bytes = sum(slot * (LM_PROMPT + i + 2) for i in range(LM_GEN)) / LM_GEN
     d, v = cfg.d_model, cfg.vocab_size
-    layer_params = cfg.param_count() - v * d * (1 if cfg.tie_embeddings
-                                                else 2)
+    layer_params = cfg.active_param_count() - v * d * (
+        1 if cfg.tie_embeddings else 2)
     tokens = LM_BATCH * LM_PROMPT
     attn = (2 * 2 * LM_BATCH * cfg.n_layers * cfg.n_heads * cfg.head_dim
             * LM_PROMPT * (LM_PROMPT + 1) // 2)
     prefill_ops = 2 * layer_params * tokens + 2 * d * v * LM_BATCH + attn
-    return dict(weight_bytes=weight_bytes, kv_bytes_per_token=kv_bytes,
-                decode_bound_ms=(weight_bytes + kv_bytes) / HBM_BYTES_PER_S
-                * 1e3,
-                prefill_ops=prefill_ops,
-                prefill_bound_ms=prefill_ops / BF16_TENSOR_OPS_PER_S * 1e3)
+    out = dict(weight_bytes=weight_bytes, kv_bytes_per_token=kv_bytes,
+               prefill_ops=prefill_ops,
+               prefill_bound_ms=prefill_ops / BF16_TENSOR_OPS_PER_S * 1e3)
+    read = weight_bytes
+    if experts_read is not None:
+        routed = sum(p.numel() * p.element_size() for layer in model.layers
+                     for p in (layer.moe.gate, layer.moe.up, layer.moe.down))
+        table = model.embed.table
+        read = (weight_bytes - routed
+                - (table.shape[0] - LM_BATCH) * table[0].nbytes
+                + experts_read * routed / (cfg.n_layers * cfg.moe.n_experts))
+        out.update(routed_expert_bytes=routed,
+                   experts_read_per_token=experts_read,
+                   all_experts_ms=(weight_bytes + kv_bytes) / HBM_BYTES_PER_S
+                   * 1e3)
+    out.update(read_bytes_per_token=read,
+               decode_bound_ms=(read + kv_bytes) / HBM_BYTES_PER_S * 1e3)
+    return out
+
+
+def lm_timings(model, kw, card: str, trace_steps: int) -> dict:
+    """(c) The served model's prefill ms (CUDA events, mean of
+    ``LM_REPS`` after a warm-up), decode ms/token (the second of two
+    passes of ``LM_GEN`` steps), tok/s, peak memory, and one profiled
+    prefill and ``trace_steps``-step decode pass."""
+    from repro_torch.launch import serve
+    from repro_torch.models import decode as DEC
+
+    torch.cuda.reset_peak_memory_stats()
+    prefill_ms = cuda_ms(lambda: DEC.prefill(
+        model, smax=LM_PROMPT + LM_GEN, q_chunk=LM_Q_CHUNK, **kw), LM_REPS)
+    decode_ms = []
+    for _ in range(2):                  # the first pass is the warm-up
+        logits, cache = DEC.prefill(model, smax=LM_PROMPT + LM_GEN,
+                                    q_chunk=LM_Q_CHUNK, **kw)
+        sync()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fed, last = serve.decode(model, cache, logits.argmax(-1), LM_GEN)
+        stop.record()
+        stop.synchronize()
+        decode_ms.append(start.elapsed_time(stop) / LM_GEN)
+        if not bool(torch.isfinite(last).all()):
+            raise AssertionError("lm serving (c): non-finite logits")
+    peak = torch.cuda.max_memory_allocated()
+    logits, cache = DEC.prefill(model, smax=LM_PROMPT + LM_GEN,
+                                q_chunk=LM_Q_CHUNK, **kw)
+    traces = [
+        profile_run(f"lm prefill {LM_BATCH}x{LM_PROMPT}", lambda: DEC.prefill(
+            model, smax=LM_PROMPT + LM_GEN, q_chunk=LM_Q_CHUNK, **kw), card),
+        profile_run(f"lm decode {trace_steps} steps", lambda: serve.decode(
+            model, {"layers": [{n: t.clone() for n, t in e.items()}
+                               for e in cache["layers"]],
+                    "pos": cache["pos"]}, logits.argmax(-1), trace_steps),
+            card)]
+    return dict(prefill_ms=prefill_ms, decode_ms_per_token=decode_ms[-1],
+                decode_warmup_ms_per_token=decode_ms[0],
+                tokens_per_s=LM_BATCH * 1e3 / decode_ms[-1], peak_bytes=peak,
+                sample_tokens=fed[0, :10].tolist(), traces=traces)
+
+
+def log_lm_timings(tag: str, out: dict, card: str) -> None:
+    log(f"{tag} (c) prefill {out['prefill_ms']:.3f} ms (bound "
+        f"{out['prefill_bound_ms']:.3f} ms: {out['prefill_ops']:.4g} "
+        f"bfloat16 operations at {BF16_TENSOR_OPS_PER_S:.4g}/s) ({card})")
+    log(f"{tag} (c) decode {out['decode_ms_per_token']:.3f} ms/token "
+        f"(warm-up pass {out['decode_warmup_ms_per_token']:.3f}), "
+        f"{out['tokens_per_s']:.1f} tok/s (bound "
+        f"{out['decode_bound_ms']:.3f} ms/token: "
+        f"{out['read_bytes_per_token']:.0f} weight bytes + "
+        f"{out['kv_bytes_per_token']:.0f} cache bytes a token at "
+        f"{HBM_BYTES_PER_S:.4g} B/s) ({card})")
+    log(f"{tag} (c) peak memory {out['peak_bytes'] - out['held_before_bytes']}"
+        f" bytes (torch.cuda.max_memory_allocated over the timed serving, "
+        f"the bfloat16 model included, less the {out['held_before_bytes']} "
+        f"bytes earlier phases held); sample token ids "
+        f"{out['sample_tokens']}; phase {out['seconds']:.1f} s ({card})")
 
 
 def run_lm_serving(card: str) -> dict:
@@ -2029,7 +2156,6 @@ def run_lm_serving(card: str) -> dict:
     memory beside their bounds.  Fails on any mismatch or non-finite
     logit."""
     from repro_torch.launch import serve
-    from repro_torch.models import decode as DEC
     from repro_torch.models import model as MDL
 
     if torch.backends.cuda.matmul.allow_tf32:
@@ -2059,46 +2185,14 @@ def run_lm_serving(card: str) -> dict:
         raise AssertionError("lm serving (b): non-finite bfloat16 logits")
     load_s = time.perf_counter() - t0
 
-    torch.cuda.reset_peak_memory_stats()
-
-    prefill_ms = cuda_ms(lambda: DEC.prefill(
-        model, smax=LM_PROMPT + LM_GEN, q_chunk=LM_Q_CHUNK, **kw), LM_REPS)
-    decode_ms = []
-    for _ in range(2):                  # the first pass is the warm-up
-        logits, cache = DEC.prefill(model, smax=LM_PROMPT + LM_GEN,
-                                    q_chunk=LM_Q_CHUNK, **kw)
-        sync()
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fed, last = serve.decode(model, cache, logits.argmax(-1), LM_GEN)
-        stop.record()
-        stop.synchronize()
-        decode_ms.append(start.elapsed_time(stop) / LM_GEN)
-        if not bool(torch.isfinite(last).all()):
-            raise AssertionError("lm serving (c): non-finite logits")
-    peak = torch.cuda.max_memory_allocated()
-    bounds = lm_bounds(cfg, model)
-    logits, cache = DEC.prefill(model, smax=LM_PROMPT + LM_GEN,
-                                q_chunk=LM_Q_CHUNK, **kw)
-    traces = [
-        profile_run(f"lm prefill {LM_BATCH}x{LM_PROMPT}", lambda: DEC.prefill(
-            model, smax=LM_PROMPT + LM_GEN, q_chunk=LM_Q_CHUNK, **kw), card),
-        profile_run(f"lm decode {LM_TRACE_STEPS} steps", lambda: serve.decode(
-            model, {"layers": [{n: t.clone() for n, t in e.items()}
-                               for e in cache["layers"]],
-                    "pos": cache["pos"]}, logits.argmax(-1), LM_TRACE_STEPS),
-            card)]
+    out.update(lm_timings(model, kw, card, LM_TRACE_STEPS))
+    out.update(lm_bounds(cfg, model))
     out.update(
         batch=LM_BATCH, prompt=LM_PROMPT, gen=LM_GEN, q_chunk=LM_Q_CHUNK,
         decode_vs_forward_rel_float32=rel32,
         decode_vs_forward_rel_bfloat16=rel16, load_and_check_s=load_s,
-        prefill_ms=prefill_ms, decode_ms_per_token=decode_ms[-1],
-        decode_warmup_ms_per_token=decode_ms[0],
-        tokens_per_s=LM_BATCH * 1e3 / decode_ms[-1], peak_bytes=peak,
-        held_before_bytes=held,
-        sample_tokens=fed[0, :10].tolist(), traces=traces, **bounds)
-    del model, cache, logits, last
+        held_before_bytes=held)
+    del model
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_phase
 
@@ -2113,21 +2207,153 @@ def run_lm_serving(card: str) -> dict:
         f"decode steps: decode vs forward rel {rel32:.2e} in float32 "
         f"(bound 2e-3), {rel16:.2e} in bfloat16 (no bound); every logit "
         f"finite ({card})")
-    log(f"lm serving (c) prefill {prefill_ms:.3f} ms (bound "
-        f"{out['prefill_bound_ms']:.3f} ms: {out['prefill_ops']:.4g} "
-        f"bfloat16 operations at {BF16_TENSOR_OPS_PER_S:.4g}/s) ({card})")
-    log(f"lm serving (c) decode {out['decode_ms_per_token']:.3f} ms/token "
-        f"(warm-up pass {decode_ms[0]:.3f}), {out['tokens_per_s']:.1f} "
-        f"tok/s (bound {out['decode_bound_ms']:.3f} ms/token: "
-        f"{out['weight_bytes']} weight bytes + "
-        f"{out['kv_bytes_per_token']:.0f} cache bytes a token at "
-        f"{HBM_BYTES_PER_S:.4g} B/s) ({card})")
-    log(f"lm serving (c) peak memory {peak - held} bytes "
-        f"(torch.cuda.max_memory_allocated over the timed serving, the "
-        f"bfloat16 model included, less the {held} bytes earlier phases "
-        f"held); "
-        f"sample token ids {out['sample_tokens']}; phase "
-        f"{out['seconds']:.1f} s ({card})")
+    log_lm_timings("lm serving", out, card)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: MoE serving (repro_torch.models.moe)
+# ---------------------------------------------------------------------------
+
+#: The MoE slice's model, served at full width and depth.
+MOE_ARCH = "deepseek-moe-16b"
+#: (b): the float32 check's depth (28 float32 layers are 67.5 GB)
+MOE_FLOAT32_LAYERS = 14
+#: decode steps of the profiled pass (~2,800 device launches a step)
+MOE_TRACE_STEPS = 4
+#: (d): arctic-480b at full width, cut to one layer (35 are 954 GB in
+#: bfloat16: no single card holds them), and its decode steps
+ARCTIC_ARCH, ARCTIC_LAYERS, ARCTIC_GEN = "arctic-480b", 1, 8
+
+
+def no_drop(cfg):
+    """``cfg`` with ``capacity_factor`` E/K: then C ≥ a chunk's tokens and
+    no assignment drops, so ``forward`` over the prompt and the fed
+    tokens routes every token as prefill and decode do."""
+    m = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.n_experts / m.top_k))
+
+
+def run_lm_moe(card: str) -> dict:
+    """(a) card against CPU at full width, two layers, float32, the same
+    experts; (b) decode against ``forward`` at ``capacity_factor`` E/K:
+    float32 at ``MOE_FLOAT32_LAYERS`` layers (rel ≤ 2e-3), bfloat16 at
+    full depth (reported), every logit finite; (c) the served bfloat16
+    model, configuration as written: prefill ms, decode ms/token, tok/s,
+    peak memory beside their bounds, the served prefill's dropped
+    assignments; (d) arctic-480b at full width, one layer, bfloat16:
+    every logit finite, decode against ``forward`` reported.  Fails on
+    any mismatch or non-finite logit."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import decode as DEC
+    from repro_torch.models import model as MDL
+
+    t_phase = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    cfg = get_config(MOE_ARCH)
+    out = {"arch": cfg.name, "params": cfg.param_count(),
+           "active_params": cfg.active_param_count(),
+           "cross_device": lm_cross_device(cfg)}
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(no_drop(cfg), n_layers=MOE_FLOAT32_LAYERS,
+                                activation_dtype="float32")
+    masters = MDL.init_params(cfg32, torch.Generator(DEVICE).manual_seed(0),
+                              DEVICE)
+    kw = serve.prompt_inputs(cfg, LM_BATCH, LM_PROMPT, DEVICE)
+    rel32, finite32 = lm_decode_check(masters, kw)
+    del masters
+    torch.cuda.empty_cache()
+    if not finite32 or rel32 > 2e-3:
+        raise AssertionError(f"lm moe (b): float32 decode != forward "
+                             f"(rel {rel32}, bound 2e-3; finite {finite32})")
+    model = serve.load_model(no_drop(cfg), DEVICE, seed=0)
+    rel16, finite16 = lm_decode_check(model, kw)
+    del model
+    torch.cuda.empty_cache()
+    if not finite16:
+        raise AssertionError("lm moe (b): non-finite bfloat16 logits")
+    load_s = time.perf_counter() - t0
+
+    model = serve.load_model(cfg, DEVICE, seed=0)   # the same draws
+    with recorded_routes() as calls:
+        logits, cache = DEC.prefill(model, smax=LM_PROMPT + LM_GEN,
+                                    q_chunk=LM_Q_CHUNK, **kw)
+        by_layer = [int((~r.valid).sum()) for r in calls]
+        dropped = sum(by_layer)
+        assignments = sum(r.valid.numel() for r in calls)
+        del calls[:]
+        serve.decode(model, cache, logits.argmax(-1), LM_GEN)
+        experts = sum(int(r.gate_idx.unique().numel())
+                      for r in calls) / LM_GEN
+    del logits, cache
+    out.update(lm_timings(model, kw, card, MOE_TRACE_STEPS))
+    out.update(lm_bounds(cfg, model, experts))
+    out.update(
+        batch=LM_BATCH, prompt=LM_PROMPT, gen=LM_GEN, q_chunk=LM_Q_CHUNK,
+        float32_layers=MOE_FLOAT32_LAYERS,
+        decode_vs_forward_rel_float32=rel32,
+        decode_vs_forward_rel_bfloat16=rel16, load_and_check_s=load_s,
+        prefill_dropped=dropped, prefill_dropped_by_layer=by_layer,
+        prefill_assignments=assignments,
+        held_before_bytes=held)
+    del model
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    acfg = no_drop(dataclasses.replace(get_config(ARCTIC_ARCH),
+                                       n_layers=ARCTIC_LAYERS))
+    model = serve.load_model(acfg, DEVICE, seed=0)
+    akw = serve.prompt_inputs(acfg, LM_BATCH, LM_PROMPT, DEVICE)
+    arel, afinite = lm_decode_check(model, akw, ARCTIC_GEN)
+    abytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    del model
+    torch.cuda.empty_cache()
+    if not afinite:
+        raise AssertionError("lm moe (d): non-finite arctic-480b logits")
+    full = get_config(ARCTIC_ARCH)
+    out["arctic"] = dict(arch=acfg.name, layers=ARCTIC_LAYERS,
+                         full_layers=full.n_layers,
+                         full_params=full.param_count(),
+                         weight_bytes=abytes, gen=ARCTIC_GEN,
+                         decode_vs_forward_rel_bfloat16=arel,
+                         seconds=time.perf_counter() - t0)
+    out["seconds"] = time.perf_counter() - t_phase
+
+    x = out["cross_device"]
+    log(f"lm moe (a) {cfg.name} at {x['layers']} layers, float32, prompt "
+        f"{x['prompt']}, {x['steps']} decode steps: card equals CPU within "
+        f"{max(x['rel_errs']):.2e} of max |logits| (bound 1e-4), the same "
+        f"greedy tokens {x['tokens'][0]} and the same experts in all "
+        f"{x['route_calls']} routing calls ({x['seconds']:.1f} s) ({card})")
+    log(f"lm moe (b) {cfg.name} full width ({out['params']} parameters, "
+        f"{out['active_params']} active a token), capacity_factor E/K, "
+        f"batch {LM_BATCH}, prompt {LM_PROMPT}, {LM_GEN} decode steps: "
+        f"decode vs forward rel {rel32:.2e} in float32 at "
+        f"{MOE_FLOAT32_LAYERS} layers (bound 2e-3), {rel16:.2e} in "
+        f"bfloat16 at {cfg.n_layers} (no bound); every logit finite "
+        f"({card})")
+    log(f"lm moe (c) served prefill (capacity_factor "
+        f"{cfg.moe.capacity_factor}): {dropped} of {assignments} "
+        f"assignments dropped (by layer {by_layer}); decode reads "
+        f"{experts:.2f} distinct routed "
+        f"experts a token over {cfg.n_layers} layers; the dense expert "
+        f"products read every weight, {out['weight_bytes']} bytes "
+        f"({out['all_experts_ms']:.3f} ms a token at {HBM_BYTES_PER_S:.4g}"
+        f" B/s) ({card})")
+    log_lm_timings("lm moe", out, card)
+    a = out["arctic"]
+    log(f"lm moe (d) {a['arch']} at full width, {a['layers']} of "
+        f"{a['full_layers']} layers ({a['weight_bytes']} bytes in bfloat16; "
+        f"all {a['full_layers']} layers, {a['full_params']} parameters, fit "
+        f"no single card), "
+        f"capacity_factor E/K, batch {LM_BATCH}, prompt {LM_PROMPT}, "
+        f"{ARCTIC_GEN} decode steps: decode vs forward rel "
+        f"{a['decode_vs_forward_rel_bfloat16']:.2e} in bfloat16 (no bound); "
+        f"every logit finite ({a['seconds']:.1f} s) ({card})")
     return out
 
 
@@ -2192,6 +2418,7 @@ def main() -> int:
     baselines = run_baselines(images, smi)
     distributed = run_distributed(counters, smi)
     lm_serving = run_lm_serving(smi)
+    lm_moe = run_lm_moe(smi)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -2203,7 +2430,7 @@ def main() -> int:
          "traces": traces, "kernels": timing, "serving": serving,
          "continuous": continuous, "verifier": verifier,
          "baselines": baselines, "distributed": distributed,
-         "lm_serving": lm_serving},
+         "lm_serving": lm_serving, "lm_moe": lm_moe},
         indent=1))
     log(smi)
     log(json.dumps({"kernels": [

@@ -1,13 +1,16 @@
 """Serving launcher: batched prefill + greedy decode against a KV cache
-for the attention architectures — the port of ``repro/launch/serve.py``.
+for the attention architectures, dense or MoE — the port of
+``repro/launch/serve.py``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
         [--reduced] --batch 4 --prompt-len 32 --gen 16 [--device cuda]
 
 ``--device`` defaults to the GPU and raises without one; ``--device
-cpu`` runs on the CPU.  Weights are drawn from seed 0 on the device and
-cast once to the activation dtype, which the server then holds; the
-prompt is drawn from numpy seed 0, as the reference's.
+cpu`` runs on the CPU.  Weights are drawn from seed 0 on the device
+into the activation dtype, which the server then holds (each parameter
+drawn in its master dtype and cast, so no master copy of the whole
+model is made); the prompt is drawn from numpy seed 0, as the
+reference's.
 """
 from __future__ import annotations
 
@@ -25,12 +28,13 @@ from repro_torch.models import model as MDL
 
 
 def load_model(cfg: ModelConfig, device=None, seed: int = 0) -> MDL.Model:
-    """The served model: drawn on ``device`` (``None`` is the GPU) from
-    ``seed``, cast once to ``cfg.activation_dtype``."""
+    """The served model in ``cfg.activation_dtype``, drawn on ``device``
+    (``None`` is the GPU) from ``seed``: equal to the masters drawn from
+    the same seed and cast, without holding them (deepseek-moe-16b's
+    float32 masters alone are 67.5 GB)."""
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
-    return MDL.cast_params(MDL.init_params(cfg, gen, device),
-                           cfg.activation_dtype)
+    return MDL.init_params(cfg, gen, device, dtype=cfg.activation_dtype)
 
 
 def prompt_inputs(cfg: ModelConfig, batch: int, prompt_len: int, device,

@@ -53,9 +53,9 @@ class Attention(nn.Module):
             self.q_norm = RMSNorm(hd, device=device, dtype=dtype)
             self.k_norm = RMSNorm(hd, device=device, dtype=dtype)
 
-    def init_(self, generator) -> None:
+    def init_(self, generator, dtype=None) -> None:
         for w in (self.wq, self.wk, self.wv, self.wo):
-            normal_init_(w, generator)
+            normal_init_(w, generator, dtype=dtype)
         with torch.no_grad():
             for b in (self.bq, self.bk, self.bv):
                 if b is not None:

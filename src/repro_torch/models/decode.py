@@ -1,5 +1,6 @@
 """Serving path: cache init, prefill (cache capture), single-token decode
-— the port of ``repro/models/decode.py`` for the attention kinds.
+— the port of ``repro/models/decode.py`` for the attention kinds (with
+a dense or MoE FFN).
 
 The cache is ``{"layers": [{"k", "v"}, ...], "pos": int}``: one entry a
 layer in the model's layer order (``convert.reference_layers`` maps the
@@ -29,6 +30,7 @@ from repro_torch.models.model import (
     cast_params,
     check_supported,
     embed_inputs,
+    ffn_sublayer,
     logits_of,
 )
 
@@ -103,8 +105,8 @@ def decode_step(model: Model, cache: dict, tokens=None, *, embeds=None):
                   if layer.kind == "attn_local" and not ring else None)
         out = A.decode_attention(q, entry["k"], entry["v"], pos, window)
         x = x + out.reshape(b, 1, -1) @ layer.attn.wo
-        if layer.mlp is not None:
-            x = x + layer.mlp(layer.norm2(x))
+        # a MoE routes the step as a chunk of one token a row
+        x, _ = ffn_sublayer(layer, cfg, x)
 
     logits = logits_of(model, model.final_norm(x))
     cache["pos"] = pos + 1
@@ -148,7 +150,7 @@ def prefill(model: Model, tokens=None, *, embeds=None, smax: int | None = None,
 
     layers: list[dict[str, Any]] = []
     for layer in model.layers:
-        x, k, v = attn_sublayer(layer, cfg, x, positions, q_chunk)
+        x, k, v, _ = attn_sublayer(layer, cfg, x, positions, q_chunk)
         layers.append({"k": _capture(cfg, layer.kind, k, smax),
                        "v": _capture(cfg, layer.kind, v, smax)})
 

@@ -27,19 +27,26 @@ _CDF_LO, _CDF_HI = ((1.0 + math.erf(z / math.sqrt(2.0))) / 2.0
 
 
 def normal_init_(p: torch.Tensor, generator: torch.Generator,
-                 scale: float | None = None) -> torch.Tensor:
+                 scale: float | None = None,
+                 dtype: torch.dtype | None = None) -> torch.Tensor:
     """Truncated normal on [-2, 2] × ``scale`` (1/√fan_in by default),
     fan_in = ``shape[0]``: the reference's ``normal_init`` distribution,
     drawn from ``generator`` where ``p`` lives.  By the inverse CDF: one
     uniform draw a value and no rejection loop (``nn.init.trunc_normal_``
     redraws the whole tensor until no value falls outside, which took
-    seconds per 1e8 values on a CPU)."""
+    seconds per 1e8 values on a CPU).
+
+    The values are drawn in ``dtype`` (``p``'s own by default) and cast
+    into ``p``: a served copy draws each parameter in its master dtype
+    into a temporary of that one parameter, so it equals the masters
+    drawn from the same generator and cast."""
     fan_in = p.shape[0] if p.ndim > 1 else 1
     std = scale if scale is not None else 1.0 / math.sqrt(max(1, fan_in))
     with torch.no_grad():
-        p.uniform_(2 * _CDF_LO - 1, 2 * _CDF_HI - 1, generator=generator)
-        p.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
-        return p.mul_(std)
+        t = p if dtype in (None, p.dtype) else torch.empty_like(p, dtype=dtype)
+        t.uniform_(2 * _CDF_LO - 1, 2 * _CDF_HI - 1, generator=generator)
+        t.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0).mul_(std)
+        return p if t is p else p.copy_(t)
 
 
 # ---------------------------------------------------------------------------
@@ -99,10 +106,10 @@ class MLP(nn.Module):
         self.gate = (param((d, f), device, dtype)
                      if activation in ("silu", "geglu") else None)
 
-    def init_(self, generator) -> None:
+    def init_(self, generator, dtype=None) -> None:
         for p in (self.gate, self.up, self.down):
             if p is not None:
-                normal_init_(p, generator)
+                normal_init_(p, generator, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return mlp(x, self.activation, self.up, self.down, self.gate)
@@ -158,10 +165,10 @@ class Embedding(nn.Module):
         self.d = d
         self.table = param((vocab, d), device, dtype)
 
-    def init_(self, generator) -> None:
+    def init_(self, generator, dtype=None) -> None:
         # std 1/sqrt(d): the sqrt(d) forward scaling then yields a
         # unit-variance residual stream AND unit-variance tied logits.
-        normal_init_(self.table, generator, scale=self.d ** -0.5)
+        normal_init_(self.table, generator, self.d ** -0.5, dtype)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return embed(self.table, tokens, self.d)

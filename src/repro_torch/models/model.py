@@ -9,11 +9,12 @@ runs them in a Python loop: layer ``g·period + j`` of the reference's
 and the tail follows (``repro_torch.models.convert`` maps one onto the
 other).
 
-This slice builds the attention kinds (``attn``, ``attn_local``,
-``attn_global``) with a dense FFN.  A configuration that needs MoE,
-Mamba2, xLSTM or an encoder raises ``NotImplementedError`` naming the
-later slice of ``ROADMAP.md`` that ports it.  ``loss_fn`` waits for the
-training slice.
+The port builds the attention kinds (``attn``, ``attn_local``,
+``attn_global``) with a dense FFN or a Mixture-of-Experts
+(``repro_torch.models.moe``; it takes precedence over ``d_ff``, as in
+the reference).  A configuration that needs Mamba2, xLSTM or an encoder
+raises ``NotImplementedError`` naming the later slice of ``ROADMAP.md``
+that ports it.  ``loss_fn`` waits for the training slice.
 """
 from __future__ import annotations
 
@@ -32,15 +33,14 @@ from repro_torch.models.layers import (
     softcap,
     unembed,
 )
+from repro_torch.models.moe import MoE, moe_apply
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a configuration whose layers a
     later slice of the port builds (the message names that slice)."""
     kinds = {cfg.layer_kind(i) for i in range(cfg.n_layers)}
-    if cfg.moe is not None:
-        item = "item 2, MoE (models/moe.py)"
-    elif kinds & {"mamba2"} or cfg.shared_attn_period:
+    if kinds & {"mamba2"} or cfg.shared_attn_period:
         item = ("item 3, the recurrent kinds (models/ssm.py with the "
                 "shared attention block)")
     elif kinds & {"mlstm", "slstm"}:
@@ -82,44 +82,54 @@ def dims(cfg: ModelConfig) -> A.AttnDims:
 
 
 class DecoderLayer(nn.Module):
-    """norm1 → attention → residual, then norm2 → MLP → residual."""
+    """norm1 → attention → residual, then norm2 → MoE or MLP →
+    residual."""
 
     def __init__(self, cfg: ModelConfig, kind: str, device=None,
-                 dtype=torch.float32):
+                 dtype=torch.float32, router_dtype=torch.float32):
         super().__init__()
         d = cfg.d_model
         self.kind = kind
         self.norm1 = RMSNorm(d, cfg.norm_eps, device, dtype)
         self.attn = A.Attention(d, dims(cfg), cfg.qkv_bias, cfg.qk_norm,
                                 device, dtype)
-        self.norm2 = self.mlp = None
-        if cfg.d_ff:
+        self.norm2 = self.mlp = self.moe = None
+        if cfg.moe is not None or cfg.d_ff:
             self.norm2 = RMSNorm(d, cfg.norm_eps, device, dtype)
+        if cfg.moe is not None:
+            self.moe = MoE(d, cfg.moe, cfg.activation, device, dtype,
+                           router_dtype)
+        elif cfg.d_ff:
             self.mlp = MLP(d, cfg.d_ff, cfg.activation, device, dtype)
 
-    def init_(self, generator) -> None:
+    def init_(self, generator, dtype=None) -> None:
         self.norm1.init_()
-        self.attn.init_(generator)
-        if self.mlp is not None:
+        self.attn.init_(generator, dtype)
+        ffn = self.moe if self.moe is not None else self.mlp
+        if ffn is not None:
             self.norm2.init_()
-            self.mlp.init_(generator)
+            ffn.init_(generator, dtype)
 
 
 class Model(nn.Module):
     """The port's parameter tree: ``embed.table``, ``final_norm.scale``,
-    ``layers.<i>.{norm1,attn,norm2,mlp}.*`` and, untied, ``lm_head.w``.
-    Construction allocates uninitialised parameters (``device="meta"``
-    allocates none); ``init_params`` draws them."""
+    ``layers.<i>.{norm1,attn,norm2,mlp|moe}.*`` and, untied,
+    ``lm_head.w``.  Construction allocates uninitialised parameters
+    (``device="meta"`` allocates none); ``init_params`` draws them.
+    Without ``dtype`` they are the masters, in ``cfg.param_dtype`` with
+    the MoE routers in float32 (the reference's ``moe_init``); with it,
+    every parameter has that dtype (a served copy)."""
 
     def __init__(self, cfg: ModelConfig, device=None, dtype=None):
         super().__init__()
         check_supported(cfg)
+        router_dtype = dtype or torch.float32
         dtype = dtype or getattr(torch, cfg.param_dtype)
         self.cfg = cfg
         self.embed = Embedding(cfg.vocab_size, cfg.d_model, device, dtype)
         self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, device, dtype)
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, cfg.layer_kind(i), device, dtype)
+            DecoderLayer(cfg, cfg.layer_kind(i), device, dtype, router_dtype)
             for i in range(cfg.n_layers))
         self.lm_head = None
         if not cfg.tie_embeddings:
@@ -159,20 +169,29 @@ def cast_params(model: Model, dtype) -> Model:
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device=None) -> Model:
-    """A ``Model`` in ``cfg.param_dtype`` drawn from ``generator`` on
-    ``device`` (``None`` is the GPU and raises without one; the
-    generator must live there too): the reference's initialisers'
-    distributions — truncated normal on [-2, 2] over √fan_in, the
-    embedding at std d^-½, norms and biases zero — not their values."""
+                device=None, dtype=None) -> Model:
+    """The masters (``cfg.param_dtype``, MoE routers in float32) drawn
+    from ``generator`` on ``device`` (``None`` is the GPU and raises
+    without one; the generator must live there too): the reference's
+    initialisers' distributions — truncated normal on [-2, 2] over
+    √fan_in (the experts' over d and f), the embedding at std d^-½,
+    norms and biases zero — not their values.
+
+    With ``dtype``, every parameter is allocated in it and drawn in its
+    master dtype, one parameter at a time, then cast: the values equal
+    ``cast_params(init_params(cfg, generator, device), dtype)`` without
+    a master copy of the whole model."""
     device = resolve_device(device)
-    model = Model(cfg, device=device)
-    model.embed.init_(generator)
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
+    master = getattr(torch, cfg.param_dtype)
+    model = Model(cfg, device=device, dtype=dtype)
+    model.embed.init_(generator, master)
     for layer in model.layers:
-        layer.init_(generator)
+        layer.init_(generator, master)
     model.final_norm.init_()
     if model.lm_head is not None:
-        normal_init_(model.lm_head["w"], generator)
+        normal_init_(model.lm_head["w"], generator, dtype=master)
     return model
 
 
@@ -181,9 +200,22 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 
+def ffn_sublayer(layer: DecoderLayer, cfg: ModelConfig, x):
+    """norm2 → the layer's MoE or MLP → residual -> (x, the MoE's aux,
+    or None)."""
+    if layer.moe is not None:
+        y, aux = moe_apply(layer.moe, layer.norm2(x), cfg.moe,
+                           cfg.activation)
+        return x + y, aux
+    if layer.mlp is not None:
+        x = x + layer.mlp(layer.norm2(x))
+    return x, None
+
+
 def attn_sublayer(layer: DecoderLayer, cfg: ModelConfig, x, positions,
                   q_chunk: int):
-    """One layer over a whole sequence -> (x, k, v) (k, v roped)."""
+    """One layer over a whole sequence -> (x, k, v, aux) (k, v roped;
+    aux the MoE's, or None)."""
     b, s = x.shape[:2]
     h = layer.norm1(x)
     q, k, v = A.qkv(layer.attn, h, positions, cfg.rope_theta)
@@ -191,9 +223,8 @@ def attn_sublayer(layer: DecoderLayer, cfg: ModelConfig, x, positions,
     out = A.flash_attention(q, k, v, causal=True, window=window,
                             q_chunk=q_chunk, kv_chunk=q_chunk)
     x = x + out.reshape(b, s, -1) @ layer.attn.wo
-    if layer.mlp is not None:
-        x = x + layer.mlp(layer.norm2(x))
-    return x, k, v
+    x, aux = ffn_sublayer(layer, cfg, x)
+    return x, k, v, aux
 
 
 def embed_inputs(model: Model, tokens=None, embeds=None) -> torch.Tensor:
@@ -217,22 +248,25 @@ def logits_of(model: Model, x: torch.Tensor) -> torch.Tensor:
 @torch.no_grad()
 def forward_hidden(model: Model, tokens=None, *, embeds=None,
                    q_chunk: int = 1024):
-    """Forward pass up to (and including) the final norm -> (x, aux)."""
+    """Forward pass up to (and including) the final norm -> (x, aux),
+    aux the sum of the layers' MoE auxiliaries (0 without MoE)."""
     cfg = model.cfg
     model = cast_params(model, cfg.activation_dtype)
     x = embed_inputs(model, tokens, embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    for layer in model.layers:
-        x, _, _ = attn_sublayer(layer, cfg, x, positions, q_chunk)
     aux = torch.zeros((), device=x.device)
+    for layer in model.layers:
+        x, _, _, layer_aux = attn_sublayer(layer, cfg, x, positions, q_chunk)
+        if layer_aux is not None:
+            aux = aux + layer_aux
     return model.final_norm(x), aux
 
 
 @torch.no_grad()
 def forward(model: Model, tokens=None, *, embeds=None, q_chunk: int = 1024):
     """Full forward pass -> (float32 logits (B, S, V), aux).  ``embeds``
-    bypasses the token embedding.  ``aux`` (the MoE load-balancing loss
-    of the reference) is 0: no layer of this slice has one."""
+    bypasses the token embedding.  ``aux`` is the MoE load-balancing
+    loss of the reference, summed over the layers (0 without MoE)."""
     model = cast_params(model, model.cfg.activation_dtype)
     x, aux = forward_hidden(model, tokens, embeds=embeds, q_chunk=q_chunk)
     return logits_of(model, x), aux

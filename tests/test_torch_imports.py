@@ -79,7 +79,7 @@ def test_no_jax_or_reference_import_in_port_sources():
         "seamless_m4t_large_v2")} <= set(files)
     assert {PORT / "models" / f"{name}.py" for name in (
         "__init__", "layers", "attention", "model", "decode",
-        "convert")} | {PORT / "launch" / "__init__.py",
+        "convert", "moe")} | {PORT / "launch" / "__init__.py",
                        PORT / "launch" / "serve.py"} <= set(files)
     offenders = [(f.relative_to(REPO).as_posix(), root) for f in files
                  for root in _imported_roots(f)
