@@ -118,7 +118,24 @@ Phases, each of which makes the script exit non-zero when it fails:
    counted from the experts the run's routing chose (beside the read of
    every expert the dense products make); (d) arctic-480b at full
    width, one layer, bfloat16 (35 layers fit no single card): 8 decode
-   steps, every logit finite, decode against ``forward`` reported.
+   steps, every logit finite, decode against ``forward`` reported;
+13. the recurrent layer kinds (``repro_torch.models.ssm``,
+   ``repro_torch.models.xlstm``; no Pallas kernel lies on this path
+   either), after phase 12 has freed its models: (a) float32, weights
+   drawn on the CPU, 4 greedy steps on the card against the CPU within
+   1e-4 of max |logits|, the same tokens: zamba2-7b at full width cut to
+   7 layers (one group of 6 Mamba2 layers, the shared attention block,
+   one tail layer) with a 256-token prompt (two scan chunks), xlstm-350m
+   at full width and depth with a 4-token prompt (its sLSTM is chaotic
+   under the reference's initialiser: ``XLSTM_CHECK_PROMPT``), and its
+   first mLSTM layer alone over 256 tokens (output and state); (b)
+   zamba2-7b at full width and depth, batch 4, a 256-token prompt, 128
+   greedy steps: decode against ``forward`` (384 tokens, three chunks)
+   within 2e-3 in float32, bfloat16 reported, every logit finite; (c)
+   both served bfloat16 models: phase 11's timings and trace, the
+   launches of a prefill and of a decode step, beside bounds counted
+   from the stack (the shared block's weights read at each of its 13
+   uses, the states read and written a step).
 
 The third-to-last line of standard output is the card's ``nvidia-smi``
 name and power limit, the second-to-last ``{"kernels": [...]}``, and
@@ -1982,26 +1999,27 @@ def lm_greedy(model, tokens, steps: int, q_chunk: int) -> tuple:
     return out, torch.cat(fed, 1)
 
 
-def lm_cross_device(cfg) -> dict:
-    """(a) The full-width model cut to ``LM_CHECK_LAYERS`` layers, in
-    float32 activations, drawn on the CPU from seed 0: prefill and every
-    decode step's logits on the card against the CPU's within 1e-4 of
-    max |logits|, the same greedy tokens and, for a MoE, the same
-    experts for every token in every layer."""
+def lm_cross_device(cfg, layers: int = LM_CHECK_LAYERS,
+                    prompt: int = LM_CHECK_PROMPT) -> dict:
+    """(a) The full-width model cut to ``layers`` layers, in float32
+    activations, drawn on the CPU from seed 0: prefill of ``prompt``
+    tokens and every decode step's logits on the card against the CPU's
+    within 1e-4 of max |logits|, the same greedy tokens and, for a MoE,
+    the same experts for every token in every layer."""
     from repro_torch.models import model as MDL
 
-    cfg = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS,
+    cfg = dataclasses.replace(cfg, n_layers=layers,
                               activation_dtype="float32")
     t0 = time.perf_counter()
     model = MDL.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (1, LM_CHECK_PROMPT)))
+        0, cfg.vocab_size, (1, prompt)))
     runs, routes = {}, {}
     for dev in ("cpu", DEVICE):
         model = model.to(dev)          # moves the parameters in place
         with recorded_routes() as calls:
             runs[dev] = lm_greedy(model, tokens.to(dev), LM_CHECK_STEPS,
-                                  LM_CHECK_PROMPT)
+                                  min(prompt, LM_Q_CHUNK))
             sync()
         routes[dev] = [r.gate_idx.cpu() for r in calls]
     (want, want_fed), (got, got_fed) = runs["cpu"], runs[DEVICE]
@@ -2019,7 +2037,7 @@ def lm_cross_device(cfg) -> dict:
     if not torch.equal(got_fed.cpu(), want_fed):
         raise AssertionError(f"lm serving (a): greedy tokens differ: card "
                              f"{got_fed.tolist()} CPU {want_fed.tolist()}")
-    return dict(layers=cfg.n_layers, prompt=LM_CHECK_PROMPT,
+    return dict(layers=cfg.n_layers, prompt=prompt,
                 steps=LM_CHECK_STEPS, rel_errs=errs,
                 tokens=got_fed.tolist(), route_calls=len(routes["cpu"]),
                 seconds=time.perf_counter() - t0)
@@ -2033,7 +2051,8 @@ def lm_decode_check(model, kw, steps: int = LM_GEN) -> tuple:
     from repro_torch.models import decode as DEC
     from repro_torch.models import model as MDL
 
-    logits, cache = DEC.prefill(model, smax=LM_PROMPT + steps,
+    prompt = kw["tokens"].shape[1]
+    logits, cache = DEC.prefill(model, smax=prompt + steps,
                                 q_chunk=LM_Q_CHUNK, **kw)
     fed, last = serve.decode(model, cache, logits.argmax(-1), steps)
     full, _ = MDL.forward(model, torch.cat([kw["tokens"], fed], 1),
@@ -2088,21 +2107,31 @@ def lm_bounds(cfg, model, experts_read: float | None = None) -> dict:
     return out
 
 
-def lm_timings(model, kw, card: str, trace_steps: int) -> dict:
-    """(c) The served model's prefill ms (CUDA events, mean of
-    ``LM_REPS`` after a warm-up), decode ms/token (the second of two
-    passes of ``LM_GEN`` steps), tok/s, peak memory, and one profiled
-    prefill and ``trace_steps``-step decode pass."""
+def clone_cache(cache: dict) -> dict:
+    """A copy of a serving cache: every entry's tensors cloned."""
+    return {name: ([{n: t.clone() for n, t in e.items()} for e in v]
+                   if isinstance(v, list) else v)
+            for name, v in cache.items()}
+
+
+def lm_timings(model, kw, card: str, trace_steps: int,
+               reps: int = LM_REPS) -> dict:
+    """(c) The served model's prefill ms (CUDA events, mean of ``reps``
+    after a warm-up), decode ms/token (the second of two passes of
+    ``LM_GEN`` steps), tok/s, peak memory, and one profiled prefill and
+    ``trace_steps``-step decode pass."""
     from repro_torch.launch import serve
     from repro_torch.models import decode as DEC
 
+    prompt = kw["tokens"].shape[1]
+    smax = prompt + LM_GEN
     torch.cuda.reset_peak_memory_stats()
     prefill_ms = cuda_ms(lambda: DEC.prefill(
-        model, smax=LM_PROMPT + LM_GEN, q_chunk=LM_Q_CHUNK, **kw), LM_REPS)
+        model, smax=smax, q_chunk=LM_Q_CHUNK, **kw), reps)
     decode_ms = []
     for _ in range(2):                  # the first pass is the warm-up
-        logits, cache = DEC.prefill(model, smax=LM_PROMPT + LM_GEN,
-                                    q_chunk=LM_Q_CHUNK, **kw)
+        logits, cache = DEC.prefill(model, smax=smax, q_chunk=LM_Q_CHUNK,
+                                    **kw)
         sync()
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
@@ -2114,20 +2143,20 @@ def lm_timings(model, kw, card: str, trace_steps: int) -> dict:
         if not bool(torch.isfinite(last).all()):
             raise AssertionError("lm serving (c): non-finite logits")
     peak = torch.cuda.max_memory_allocated()
-    logits, cache = DEC.prefill(model, smax=LM_PROMPT + LM_GEN,
-                                q_chunk=LM_Q_CHUNK, **kw)
+    logits, cache = DEC.prefill(model, smax=smax, q_chunk=LM_Q_CHUNK, **kw)
     traces = [
-        profile_run(f"lm prefill {LM_BATCH}x{LM_PROMPT}", lambda: DEC.prefill(
-            model, smax=LM_PROMPT + LM_GEN, q_chunk=LM_Q_CHUNK, **kw), card),
+        profile_run(f"lm prefill {LM_BATCH}x{prompt}", lambda: DEC.prefill(
+            model, smax=smax, q_chunk=LM_Q_CHUNK, **kw), card),
         profile_run(f"lm decode {trace_steps} steps", lambda: serve.decode(
-            model, {"layers": [{n: t.clone() for n, t in e.items()}
-                               for e in cache["layers"]],
-                    "pos": cache["pos"]}, logits.argmax(-1), trace_steps),
+            model, clone_cache(cache), logits.argmax(-1), trace_steps),
             card)]
     return dict(prefill_ms=prefill_ms, decode_ms_per_token=decode_ms[-1],
                 decode_warmup_ms_per_token=decode_ms[0],
                 tokens_per_s=LM_BATCH * 1e3 / decode_ms[-1], peak_bytes=peak,
-                sample_tokens=fed[0, :10].tolist(), traces=traces)
+                sample_tokens=fed[0, :10].tolist(), traces=traces,
+                prefill_launches=traces[0]["device_events"],
+                decode_launches_per_step=traces[1]["device_events"]
+                / trace_steps)
 
 
 def log_lm_timings(tag: str, out: dict, card: str) -> None:
@@ -2357,6 +2386,239 @@ def run_lm_moe(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the recurrent layer kinds (repro_torch.models.ssm, .xlstm)
+# ---------------------------------------------------------------------------
+
+#: The recurrent slice's models: zamba2-7b (Mamba2 and a shared
+#: attention block) and xlstm-350m, served at full width and depth
+ZAMBA_ARCH, XLSTM_ARCH = "zamba2-7b", "xlstm-350m"
+#: (a), (b): a prompt of two 128-token scan chunks; (a) cuts zamba2 to
+#: one group of 6 layers, the shared block and one tail layer
+REC_PROMPT, ZAMBA_CHECK_LAYERS = 256, 7
+#: (a): xlstm-350m's whole stack against the CPU over 4 prompt tokens.
+#: Its sLSTM under the reference's initialiser (``r`` at std 0.5 over
+#: 256-wide heads) is chaotic: on the CPU a 1e-7 relative perturbation
+#: of the embeddings moves the logits of the prefill and 4 greedy steps
+#: by up to 1.8e-5 at 4 tokens, 3.4e-5 at 8, 1.2e-4 at 16, 5e-3 at 32
+#: and 0.5 at 64, so no two devices' float32 agree within 1e-4 further
+#: out.  The 256-token prompt (two chunks) runs through its first mLSTM
+#: layer alone.
+XLSTM_CHECK_PROMPT = 4
+#: (b): greedy steps, so that ``forward`` runs prompt + steps = 384
+#: tokens, three whole chunks
+REC_CHECK_GEN = 128
+#: (c): timed prefill calls (an xlstm-350m prefill is ~23,000 launches)
+#: and the decode steps of the profiled pass
+REC_REPS = {ZAMBA_ARCH: LM_REPS, XLSTM_ARCH: 3}
+REC_TRACE_STEPS = 4
+
+
+def rec_bounds(cfg, model, prompt: int) -> dict:
+    """The least times for this run's work on a recurrent stack.
+
+    Decode reads every bfloat16 weight once a step — the shared block's
+    once for each of its uses (0.41 GB does not stay in a 50 MB L2), the
+    tied table for the unembedding — reads and writes every layer's
+    state, and reads the shared blocks' filled k/v slots (writing one),
+    at the HBM rate.  Prefill's products: the matrix weights a token
+    touches over every prompt token, the last token's unembedding, the
+    scans' bfloat16 products (C·Bᵀ, q·kᵀ) and causal attention at the
+    bfloat16 tensor-core peak; the scans' float32 products (against the
+    float32 states and decays; the lower triangle of a chunk's L × L)
+    at the float32 peak."""
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models.model import shared_groups
+
+    def nbytes(mod):
+        return sum(p.numel() * p.element_size() for p in mod.parameters())
+
+    def matrix_params(mod):
+        return sum(p.numel() for n, p in mod.named_parameters()
+                   if p.ndim == 2 and not n.endswith("conv_w"))
+
+    b, d, item = LM_BATCH, cfg.d_model, model.dtype.itemsize
+    uses = len(shared_groups(cfg))
+    weight_bytes = nbytes(model)
+    read = weight_bytes
+    per_token = sum(matrix_params(layer) for layer in model.layers)
+    bf16_ops = 2 * d * cfg.vocab_size * b
+    f32_ops = 0
+    state = 0
+    chunk = min(128, prompt)
+    n_chunks = prompt // chunk
+    tri = chunk * (chunk + 1) // 2
+    for i in range(cfg.n_layers):
+        kind = cfg.layer_kind(i)
+        if kind == "mamba2":
+            d_in, h = SSM.ssm_dims(d, cfg.ssm_head_dim)
+            hp, n = cfg.ssm_head_dim, cfg.ssm_state
+            state += b * (h * hp * n * 4 + (SSM.CONV_K - 1) * (d_in + 2 * n)
+                          * item)
+            bf16_ops += 2 * b * n_chunks * tri * n
+            f32_ops += 2 * b * n_chunks * (tri * h * hp + 2 * chunk * h * hp * n)
+        elif kind == "mlstm":
+            hn, hp = cfg.n_heads, 2 * d // cfg.n_heads
+            state += b * hn * (hp * hp + hp + 1) * 4
+            bf16_ops += 2 * b * n_chunks * tri * hn * hp
+            f32_ops += 2 * b * n_chunks * (tri * hn * hp
+                                           + 2 * chunk * hn * hp * hp)
+        else:
+            hn, hp = cfg.n_heads, d // cfg.n_heads
+            state += b * 4 * d * 4
+            f32_ops += 2 * b * prompt * hn * hp * 4 * hp
+    shared_kv = 0
+    if model.shared_attn is not None:
+        read += (uses - 1) * nbytes(model.shared_attn)
+        per_token += uses * matrix_params(model.shared_attn)
+        bf16_ops += uses * 2 * 2 * b * cfg.n_heads * cfg.head_dim * (
+            prompt * (prompt + 1) // 2)
+        slot = uses * 2 * b * cfg.n_kv_heads * cfg.head_dim * item
+        shared_kv = sum(slot * (prompt + i + 2) for i in range(LM_GEN)) / LM_GEN
+    bf16_ops += 2 * per_token * b * prompt
+    prefill_ms = (bf16_ops / BF16_TENSOR_OPS_PER_S
+                  + f32_ops / PEAK_OPS_PER_S) * 1e3
+    cache_bytes = 2 * state + shared_kv
+    return dict(weight_bytes=weight_bytes, read_bytes_per_token=read,
+                state_bytes=state, kv_bytes_per_token=cache_bytes,
+                prefill_ops=bf16_ops, prefill_f32_ops=f32_ops,
+                prefill_bound_ms=prefill_ms,
+                decode_bound_ms=(read + cache_bytes) / HBM_BYTES_PER_S * 1e3)
+
+
+def mlstm_layer_cross_device(cfg) -> dict:
+    """(a) xlstm-350m's first layer (mLSTM) at full width, float32, drawn
+    on the CPU from seed 0, over a ``REC_PROMPT``-token prompt (two scan
+    chunks, so the card carries (C, n, m) across a chunk boundary): its
+    output and final state on the card against the CPU's within 1e-4 of
+    max |reference|, leaf by leaf."""
+    from repro_torch.models import model as MDL
+
+    cfg = dataclasses.replace(cfg, n_layers=1, activation_dtype="float32")
+    t0 = time.perf_counter()
+    model = MDL.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, REC_PROMPT)))
+    runs = {}
+    with torch.no_grad():
+        for dev in ("cpu", DEVICE):
+            model = model.to(dev)
+            x = MDL.embed_inputs(model, tokens.to(dev))
+            y, state = MDL.recurrent_sublayer(model.layers[0], x)
+            runs[dev] = {"y": y.cpu(), **{n: t.cpu() for n, t in
+                                          state.items()}}
+    errs = {n: max_abs_err(runs[DEVICE][n], w) / float(w.abs().max())
+            for n, w in runs["cpu"].items()}
+    if max(errs.values()) > 1e-4:
+        raise AssertionError(f"lm recurrent (a): the mLSTM layer's card != "
+                             f"CPU, relative errors {errs} (bound 1e-4)")
+    return dict(prompt=REC_PROMPT, rel_errs=errs,
+                seconds=time.perf_counter() - t0)
+
+
+def rec_served(arch: str, card: str) -> dict:
+    """(c) One served bfloat16 model at full width and depth, drawn on the
+    card from seed 0: phase 11's timings and trace beside
+    ``rec_bounds``; every logit finite."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+
+    t0 = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    cfg = get_config(arch)
+    model = serve.load_model(cfg, DEVICE, seed=0)
+    kw = serve.prompt_inputs(cfg, LM_BATCH, LM_PROMPT, DEVICE)
+    out = {"arch": arch, "batch": LM_BATCH,
+           "params": sum(p.numel() for p in model.parameters()),
+           "prompt": LM_PROMPT, "gen": LM_GEN, "held_before_bytes": held}
+    out.update(lm_timings(model, kw, card, REC_TRACE_STEPS, REC_REPS[arch]))
+    out.update(rec_bounds(cfg, model, LM_PROMPT))
+    del model
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def run_lm_recurrent(card: str) -> dict:
+    """(a) card against CPU, float32, weights drawn on the CPU, 4 greedy
+    steps within 1e-4 of max |logits| and the same tokens: zamba2-7b at
+    full width cut to 7 layers (one group, the shared block, one tail
+    layer) with a 256-token prompt, xlstm-350m at full width and depth
+    with a 4-token prompt (``XLSTM_CHECK_PROMPT``: its sLSTM is chaotic)
+    and its first mLSTM layer over 256 tokens; (b)
+    zamba2-7b at full width and depth, batch 4, a 256-token prompt and
+    128 greedy steps: decode against ``forward`` within 2e-3 in float32,
+    bfloat16 reported, every logit finite; (c) both served models'
+    timings beside their bounds.  Fails on any mismatch or non-finite
+    logit."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as MDL
+
+    t_phase = time.perf_counter()
+    zcfg, xcfg = get_config(ZAMBA_ARCH), get_config(XLSTM_ARCH)
+    out = {"cross_device": {
+        ZAMBA_ARCH: lm_cross_device(zcfg, ZAMBA_CHECK_LAYERS, REC_PROMPT),
+        XLSTM_ARCH: lm_cross_device(xcfg, xcfg.n_layers,
+                                    XLSTM_CHECK_PROMPT)},
+        "mlstm_layer": mlstm_layer_cross_device(xcfg)}
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(zcfg, activation_dtype="float32")
+    masters = MDL.init_params(cfg32, torch.Generator(DEVICE).manual_seed(0),
+                              DEVICE)
+    kw = serve.prompt_inputs(zcfg, LM_BATCH, REC_PROMPT, DEVICE)
+    rel32, finite32 = lm_decode_check(masters, kw, REC_CHECK_GEN)
+    del masters
+    torch.cuda.empty_cache()
+    if not finite32 or rel32 > 2e-3:
+        raise AssertionError(f"lm recurrent (b): float32 decode != forward "
+                             f"(rel {rel32}, bound 2e-3; finite {finite32})")
+    model = serve.load_model(zcfg, DEVICE, seed=0)   # the same draws
+    rel16, finite16 = lm_decode_check(model, kw, REC_CHECK_GEN)
+    del model
+    torch.cuda.empty_cache()
+    if not finite16:
+        raise AssertionError("lm recurrent (b): non-finite bfloat16 logits")
+    out["decode_vs_forward"] = dict(
+        arch=ZAMBA_ARCH, batch=LM_BATCH, prompt=REC_PROMPT,
+        steps=REC_CHECK_GEN, rel_float32=rel32, rel_bfloat16=rel16,
+        seconds=time.perf_counter() - t0)
+    out["served"] = {arch: rec_served(arch, card)
+                     for arch in (ZAMBA_ARCH, XLSTM_ARCH)}
+    out["seconds"] = time.perf_counter() - t_phase
+
+    for arch, x in out["cross_device"].items():
+        log(f"lm recurrent (a) {arch} at full width, {x['layers']} layers, "
+            f"float32, prompt {x['prompt']}, {x['steps']} decode steps: card "
+            f"equals CPU within {max(x['rel_errs']):.2e} of max |logits| "
+            f"(bound 1e-4), the same greedy tokens {x['tokens'][0]} "
+            f"({x['seconds']:.1f} s) ({card})")
+    x = out["mlstm_layer"]
+    log(f"lm recurrent (a) {XLSTM_ARCH} layer 0 (mLSTM) at full width, "
+        f"float32, prompt {x['prompt']} (two chunks): card equals CPU, "
+        f"relative errors {json.dumps(x['rel_errs'])} (bound 1e-4) "
+        f"({x['seconds']:.1f} s) ({card})")
+    log(f"lm recurrent (b) {ZAMBA_ARCH} full width and depth "
+        f"({out['served'][ZAMBA_ARCH]['params']} parameters), batch "
+        f"{LM_BATCH}, prompt "
+        f"{REC_PROMPT}, {REC_CHECK_GEN} decode steps: decode vs forward rel "
+        f"{rel32:.2e} in float32 (bound 2e-3), {rel16:.2e} in bfloat16 (no "
+        f"bound); every logit finite "
+        f"({out['decode_vs_forward']['seconds']:.1f} s) ({card})")
+    for arch, x in out["served"].items():
+        tag = f"lm recurrent {arch}"
+        log_lm_timings(tag, x, card)
+        log(f"{tag} (c) launches: prefill {x['prefill_launches']}, decode "
+            f"{x['decode_launches_per_step']:.0f} a step; prefill bound adds "
+            f"{x['prefill_f32_ops']:.4g} float32 scan operations at "
+            f"{PEAK_OPS_PER_S:.4g}/s; state {x['state_bytes']} bytes read "
+            f"and written a step; {x['weight_bytes']} weight bytes "
+            f"({x['params']} parameters) ({card})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -2419,6 +2681,7 @@ def main() -> int:
     distributed = run_distributed(counters, smi)
     lm_serving = run_lm_serving(smi)
     lm_moe = run_lm_moe(smi)
+    lm_recurrent = run_lm_recurrent(smi)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -2430,7 +2693,8 @@ def main() -> int:
          "traces": traces, "kernels": timing, "serving": serving,
          "continuous": continuous, "verifier": verifier,
          "baselines": baselines, "distributed": distributed,
-         "lm_serving": lm_serving, "lm_moe": lm_moe},
+         "lm_serving": lm_serving, "lm_moe": lm_moe,
+         "lm_recurrent": lm_recurrent},
         indent=1))
     log(smi)
     log(json.dumps({"kernels": [

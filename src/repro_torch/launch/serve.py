@@ -1,9 +1,14 @@
-"""Serving launcher: batched prefill + greedy decode against a KV cache
-for the attention architectures, dense or MoE — the port of
-``repro/launch/serve.py``.
+"""Serving launcher: batched prefill + greedy decode against a cache
+(k/v for attention, a fixed-size state for the recurrent layers) for
+the decoder-only architectures — attention (dense or MoE), zamba2's
+hybrid Mamba2 stack, xLSTM — the port of ``repro/launch/serve.py``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
         [--reduced] --batch 4 --prompt-len 32 --gen 16 [--device cuda]
+
+The recurrent layers scan the prompt in chunks of 128 tokens, so for
+zamba2-7b and xlstm-350m ``--prompt-len`` is at most 128 or a multiple
+of it.
 
 ``--device`` defaults to the GPU and raises without one; ``--device
 cpu`` runs on the CPU.  Weights are drawn from seed 0 on the device
@@ -73,7 +78,10 @@ def main(argv=None) -> None:
     ap.add_argument("--arch", choices=ARCH_IDS, default="gemma-2b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--prompt-len", type=int, default=32,
+                    help="prompt tokens; for the recurrent layer kinds "
+                         "(zamba2-7b, xlstm-350m) at most 128 or a "
+                         "multiple of 128 (their chunked scan)")
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--device", default=None,
                     help="cuda (the default; raises without a GPU) or cpu")

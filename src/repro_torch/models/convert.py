@@ -5,7 +5,10 @@ The reference keeps a stack's layers as scanned super-blocks —
 leading ``n_groups`` axis) and an unrolled ``tail`` list
 (``layer_plan``) — where the port keeps one module a layer.  Layer
 ``g·period + j`` is ``blocks[j]`` at index ``g``; the tail follows.
-Leaves keep their names and layout, so every leaf copies as it is.
+zamba2's shared attention block is one subtree (``shared_attn``) in the
+parameters, and in a cache the extra ``blocks[period]``, one entry a
+group.  Leaves keep their names and layout, so every leaf copies as it
+is.
 """
 from __future__ import annotations
 
@@ -38,6 +41,17 @@ def reference_layers(stack: dict, cfg: ModelConfig) -> list[dict]:
     return layers
 
 
+def reference_shared(cache: dict, cfg: ModelConfig) -> list[dict]:
+    """A reference cache's shared-block entries (``blocks[period]``), one
+    flat ``{"k", "v"}`` dict a group; empty without a shared block."""
+    if not cfg.shared_attn_period:
+        return []
+    period, n_groups, _ = layer_plan(cfg)
+    entry = _flatten(cache["blocks"][period])
+    return [{k: np.asarray(v)[g] for k, v in entry.items()}
+            for g in range(n_groups)]
+
+
 def params_from_reference(tree: dict, cfg: ModelConfig) -> dict:
     """The reference's parameter tree (numpy arrays) as the port's
     ``Model`` state dict of CPU tensors, for
@@ -46,6 +60,9 @@ def params_from_reference(tree: dict, cfg: ModelConfig) -> dict:
              "final_norm.scale": tree["final_norm"]["scale"]}
     if "lm_head" in tree:
         state["lm_head.w"] = tree["lm_head"]["w"]
+    if "shared_attn" in tree:
+        state.update({f"shared_attn.{k}": v
+                      for k, v in _flatten(tree["shared_attn"]).items()})
     for i, layer in enumerate(reference_layers(tree["decoder"], cfg)):
         state.update({f"layers.{i}.{k}": v for k, v in layer.items()})
     return {k: torch.from_numpy(np.array(v)) for k, v in state.items()}

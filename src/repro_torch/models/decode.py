@@ -1,16 +1,26 @@
 """Serving path: cache init, prefill (cache capture), single-token decode
-— the port of ``repro/models/decode.py`` for the attention kinds (with
-a dense or MoE FFN).
+— the port of ``repro/models/decode.py``.
 
-The cache is ``{"layers": [{"k", "v"}, ...], "pos": int}``: one entry a
-layer in the model's layer order (``convert.reference_layers`` maps the
-reference's scan-grouped cache onto it), k/v of shape (B, Smax, KV, hd)
-in the activation dtype, and ``pos`` a host integer, so a decode step
-reads nothing back from the device.  A sliding-window layer whose
-``smax`` exceeds ``RING_THRESHOLD`` windows holds a ring of ``window``
-slots instead, written at ``pos % window``.
+The cache is ``{"layers": [entry, ...], "pos": int}`` and, with zamba2's
+shared attention block, ``"shared"``: one ``{"k", "v"}`` entry a group
+(the weights are one set; each place in the stack keeps its own cache).
+``layers`` holds one entry a layer in the model's layer order
+(``convert.reference_layers`` and ``convert.reference_shared`` map the
+reference's scan-grouped cache onto it):
 
-``decode_step`` writes the new token's k/v into the cache in place and
+  attention : k/v (B, Smax, KV, hd) in the activation dtype
+  mamba2    : ``state`` (B, H, P, N) float32, ``conv`` (B, K-1, conv_dim)
+              in the activation dtype
+  mlstm     : ``c`` (B, H, P, P), ``n`` (B, H, P), ``m`` (B, H), float32
+  slstm     : ``c``, ``n``, ``h``, ``m`` (B, d), float32
+
+An empty memory's ``m`` is -1e30.  ``pos`` is a host integer, so a
+decode step reads nothing back from the device.  A sliding-window layer
+whose ``smax`` exceeds ``RING_THRESHOLD`` windows holds a ring of
+``window`` slots instead, written at ``pos % window``.
+
+``decode_step`` writes the new token's k/v into the cache in place,
+replaces the recurrent entries' tensors with the stepped ones, and
 returns the same dict.  Where the reference's ``dynamic_update_slice``
 would clamp a write past ``smax`` onto the last slot, ``decode_step``
 raises ``ValueError``.
@@ -24,14 +34,19 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.backend import resolve_device
 from repro_torch.models import attention as A
+from repro_torch.models import ssm as SSM
+from repro_torch.models import xlstm as XL
 from repro_torch.models.model import (
     Model,
+    RecurrentLayer,
     attn_sublayer,
     cast_params,
     check_supported,
     embed_inputs,
     ffn_sublayer,
     logits_of,
+    recurrent_sublayer,
+    shared_groups,
 )
 
 RING_THRESHOLD = 8  # use a ring buffer when smax > threshold × window
@@ -52,24 +67,89 @@ def _is_ring(cfg: ModelConfig, kind: str, entry: dict) -> bool:
     return kind == "attn_local" and entry["k"].shape[1] == cfg.sliding_window
 
 
+def _entry(cfg: ModelConfig, kind: str, batch: int, smax: int,
+           device) -> dict:
+    """An empty cache entry of one layer of ``kind``."""
+    adt = getattr(torch, cfg.activation_dtype)
+    f32 = dict(dtype=torch.float32, device=device)
+    if kind.startswith("attn"):
+        shape = (batch, _ring_len(cfg, kind, smax), cfg.n_kv_heads,
+                 cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=adt, device=device),
+                "v": torch.zeros(shape, dtype=adt, device=device)}
+    if kind == "mamba2":
+        d_in, h = SSM.ssm_dims(cfg.d_model, cfg.ssm_head_dim)
+        return {"state": torch.zeros((batch, h, cfg.ssm_head_dim,
+                                      cfg.ssm_state), **f32),
+                "conv": torch.zeros((batch, SSM.CONV_K - 1,
+                                     d_in + 2 * cfg.ssm_state),
+                                    dtype=adt, device=device)}
+    if kind == "mlstm":
+        hp = 2 * cfg.d_model // cfg.n_heads
+        return dict(zip("cnm", XL.mlstm_init_state(batch, cfg.n_heads, hp,
+                                                   device)))
+    if kind == "slstm":
+        return dict(zip("cnhm", XL.slstm_init_state(batch, cfg.d_model,
+                                                    device)))
+    raise ValueError(kind)
+
+
 def init_cache(cfg: ModelConfig, batch: int, smax: int,
                device=None) -> dict:
     """An empty cache at ``pos`` 0 (``device=None`` is the GPU)."""
     check_supported(cfg)
     device = resolve_device(device)
-    adt = getattr(torch, cfg.activation_dtype)
-    layers = []
-    for i in range(cfg.n_layers):
-        shape = (batch, _ring_len(cfg, cfg.layer_kind(i), smax),
-                 cfg.n_kv_heads, cfg.head_dim)
-        layers.append({"k": torch.zeros(shape, dtype=adt, device=device),
-                       "v": torch.zeros(shape, dtype=adt, device=device)})
-    return {"layers": layers, "pos": 0}
+    cache = {"layers": [_entry(cfg, cfg.layer_kind(i), batch, smax, device)
+                        for i in range(cfg.n_layers)], "pos": 0}
+    if cfg.shared_attn_period:
+        cache["shared"] = [_entry(cfg, "attn", batch, smax, device)
+                           for _ in shared_groups(cfg)]
+    return cache
 
 
 # ---------------------------------------------------------------------------
 # decode step
 # ---------------------------------------------------------------------------
+
+
+def _attn_decode(layer, cfg: ModelConfig, x, entry: dict, pos: int,
+                 positions):
+    """One attention layer (or the shared block) for one token, its k/v
+    written into ``entry`` at ``pos``."""
+    b = x.shape[0]
+    h = layer.norm1(x)
+    q, k, v = A.qkv(layer.attn, h, positions, cfg.rope_theta)
+    ring = _is_ring(cfg, layer.kind, entry)
+    wpos = pos % cfg.sliding_window if ring else pos
+    entry["k"][:, wpos] = k[:, 0]
+    entry["v"][:, wpos] = v[:, 0]
+    # ring recency is structural; only pre-warm-up slots need masking,
+    # which `slot <= pos` provides (always true once pos >= window)
+    window = (cfg.sliding_window
+              if layer.kind == "attn_local" and not ring else None)
+    out = A.decode_attention(q, entry["k"], entry["v"], pos, window)
+    x = x + out.reshape(b, 1, -1) @ layer.attn.wo
+    # a MoE routes the step as a chunk of one token a row
+    x, _ = ffn_sublayer(layer, cfg, x)
+    return x
+
+
+def _recurrent_decode(layer: RecurrentLayer, x, entry: dict):
+    """One recurrent layer for one token; ``entry``'s tensors are
+    replaced by the stepped state."""
+    h = layer.norm1(x)
+    if layer.kind == "mamba2":
+        y, entry["state"], entry["conv"] = SSM.mamba2_decode(
+            layer.mamba, h, entry["state"], entry["conv"])
+    elif layer.kind == "mlstm":
+        y, state = XL.mlstm_decode(layer.mlstm, h,
+                                   tuple(entry[n] for n in "cnm"))
+        entry.update(zip("cnm", state))
+    else:
+        y, state = XL.slstm_decode(layer.slstm, h,
+                                   tuple(entry[n] for n in "cnhm"))
+        entry.update(zip("cnhm", state))
+    return x + y
 
 
 @torch.no_grad()
@@ -81,32 +161,29 @@ def decode_step(model: Model, cache: dict, tokens=None, *, embeds=None):
     cfg = model.cfg
     model = cast_params(model, cfg.activation_dtype)
     pos = cache["pos"]
-    for layer, entry in zip(model.layers, cache["layers"]):
-        if not _is_ring(cfg, layer.kind, entry) and pos >= entry["k"].shape[1]:
+    attn = [(layer.kind, entry)
+            for layer, entry in zip(model.layers, cache["layers"])
+            if not isinstance(layer, RecurrentLayer)]
+    attn += [("attn", entry) for entry in cache.get("shared", [])]
+    for kind, entry in attn:
+        if not _is_ring(cfg, kind, entry) and pos >= entry["k"].shape[1]:
             raise ValueError(
                 f"decode_step at pos {pos} would write past the cache's "
                 f"smax {entry['k'].shape[1]} (the reference clamps the "
                 "write onto the last slot; the port refuses)")
     x = embed_inputs(model, tokens, embeds)
-    b = x.shape[0]
-    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
+                           device=x.device)
 
-    for layer, entry in zip(model.layers, cache["layers"]):
-        h = layer.norm1(x)
-        q, k, v = A.qkv(layer.attn, h, positions, cfg.rope_theta)
-        ring = _is_ring(cfg, layer.kind, entry)
-        wpos = pos % cfg.sliding_window if ring else pos
-        entry["k"][:, wpos] = k[:, 0]
-        entry["v"][:, wpos] = v[:, 0]
-        # ring recency is structural; only pre-warm-up slots need
-        # masking, which `slot <= pos` provides (always true once
-        # pos >= window)
-        window = (cfg.sliding_window
-                  if layer.kind == "attn_local" and not ring else None)
-        out = A.decode_attention(q, entry["k"], entry["v"], pos, window)
-        x = x + out.reshape(b, 1, -1) @ layer.attn.wo
-        # a MoE routes the step as a chunk of one token a row
-        x, _ = ffn_sublayer(layer, cfg, x)
+    shared = shared_groups(cfg)
+    for i, (layer, entry) in enumerate(zip(model.layers, cache["layers"])):
+        if isinstance(layer, RecurrentLayer):
+            x = _recurrent_decode(layer, x, entry)
+        else:
+            x = _attn_decode(layer, cfg, x, entry, pos, positions)
+        if i in shared:
+            x = _attn_decode(model.shared_attn, cfg, x,
+                             cache["shared"][shared[i]], pos, positions)
 
     logits = logits_of(model, model.final_norm(x))
     cache["pos"] = pos + 1
@@ -149,10 +226,24 @@ def prefill(model: Model, tokens=None, *, embeds=None, smax: int | None = None,
     positions = torch.arange(s, device=x.device)[None, :]
 
     layers: list[dict[str, Any]] = []
-    for layer in model.layers:
-        x, k, v, _ = attn_sublayer(layer, cfg, x, positions, q_chunk)
-        layers.append({"k": _capture(cfg, layer.kind, k, smax),
-                       "v": _capture(cfg, layer.kind, v, smax)})
+    shared_entries: list[dict[str, Any]] = []
+    shared = shared_groups(cfg)
+    for i, layer in enumerate(model.layers):
+        if isinstance(layer, RecurrentLayer):
+            x, entry = recurrent_sublayer(layer, x)
+            layers.append(entry)
+        else:
+            x, k, v, _ = attn_sublayer(layer, cfg, x, positions, q_chunk)
+            layers.append({"k": _capture(cfg, layer.kind, k, smax),
+                           "v": _capture(cfg, layer.kind, v, smax)})
+        if i in shared:
+            x, k, v, _ = attn_sublayer(model.shared_attn, cfg, x, positions,
+                                       q_chunk)
+            shared_entries.append({"k": _capture(cfg, "attn", k, smax),
+                                   "v": _capture(cfg, "attn", v, smax)})
 
     logits = logits_of(model, model.final_norm(x[:, -1:, :]))
-    return logits, {"layers": layers, "pos": s}
+    cache = {"layers": layers, "pos": s}
+    if cfg.shared_attn_period:
+        cache["shared"] = shared_entries
+    return logits, cache

@@ -1,5 +1,4 @@
-"""Config-driven decoder LM for the attention layer kinds — the port of
-``repro/models/model.py``.
+"""Config-driven decoder LM — the port of ``repro/models/model.py``.
 
 The reference stacks super-blocks of one layer-kind period under
 ``lax.scan`` (``layer_plan``) with an unrolled tail.  The port holds
@@ -9,12 +8,17 @@ runs them in a Python loop: layer ``g·period + j`` of the reference's
 and the tail follows (``repro_torch.models.convert`` maps one onto the
 other).
 
-The port builds the attention kinds (``attn``, ``attn_local``,
+Layer kinds: the attention kinds (``attn``, ``attn_local``,
 ``attn_global``) with a dense FFN or a Mixture-of-Experts
 (``repro_torch.models.moe``; it takes precedence over ``d_ff``, as in
-the reference).  A configuration that needs Mamba2, xLSTM or an encoder
-raises ``NotImplementedError`` naming the later slice of ``ROADMAP.md``
-that ports it.  ``loss_fn`` waits for the training slice.
+the reference), and the recurrent kinds — ``mamba2``
+(``repro_torch.models.ssm``), ``mlstm`` and ``slstm``
+(``repro_torch.models.xlstm``) — which carry no FFN.  zamba2's shared
+attention block (``Model.shared_attn``, one parameter set) runs after
+every full group of ``shared_attn_period`` layers, not after the tail.
+An encoder-decoder configuration raises ``NotImplementedError`` naming
+the later slice of ``ROADMAP.md`` that ports it.  ``loss_fn`` waits for
+the training slice.
 """
 from __future__ import annotations
 
@@ -24,6 +28,8 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.backend import resolve_device
 from repro_torch.models import attention as A
+from repro_torch.models import ssm as SSM
+from repro_torch.models import xlstm as XL
 from repro_torch.models.layers import (
     MLP,
     Embedding,
@@ -39,20 +45,11 @@ from repro_torch.models.moe import MoE, moe_apply
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a configuration whose layers a
     later slice of the port builds (the message names that slice)."""
-    kinds = {cfg.layer_kind(i) for i in range(cfg.n_layers)}
-    if kinds & {"mamba2"} or cfg.shared_attn_period:
-        item = ("item 3, the recurrent kinds (models/ssm.py with the "
-                "shared attention block)")
-    elif kinds & {"mlstm", "slstm"}:
-        item = "item 3, the recurrent kinds (models/xlstm.py)"
-    elif cfg.is_enc_dec:
-        item = "item 4, encoder-decoder (cross-attention)"
-    else:
-        return
-    raise NotImplementedError(
-        f"{cfg.name}: the port builds the attention layer kinds only; "
-        f"this configuration waits for the language-model queue of "
-        f"ROADMAP.md §1, {item}")
+    if cfg.is_enc_dec:
+        raise NotImplementedError(
+            f"{cfg.name}: the port builds decoder-only stacks; this "
+            f"configuration waits for the language-model queue of "
+            f"ROADMAP.md §1, item 4, encoder-decoder (cross-attention)")
 
 
 # ---------------------------------------------------------------------------
@@ -75,6 +72,17 @@ def layer_plan(cfg: ModelConfig, depth: int | None = None):
                 break
     n_groups = depth // period
     return period, n_groups, kinds[n_groups * period:]
+
+
+def shared_groups(cfg: ModelConfig) -> dict[int, int]:
+    """``{layer index: group}``: the shared attention block runs after
+    the last layer of every full group of ``shared_attn_period`` layers
+    (zamba2-7b: after layers 5, 11, …, 77; not after the tail of 3).
+    Empty without a shared block."""
+    if not cfg.shared_attn_period:
+        return {}
+    period, n_groups, _ = layer_plan(cfg)
+    return {g * period + period - 1: g for g in range(n_groups)}
 
 
 def dims(cfg: ModelConfig) -> A.AttnDims:
@@ -111,26 +119,69 @@ class DecoderLayer(nn.Module):
             ffn.init_(generator, dtype)
 
 
+class RecurrentLayer(nn.Module):
+    """norm1 → ``mamba`` (Mamba2), ``mlstm`` or ``slstm`` → residual; no
+    FFN (zamba2's mamba layers and the xLSTM blocks carry none)."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, device=None,
+                 dtype=torch.float32, f32_dtype=torch.float32):
+        super().__init__()
+        d = cfg.d_model
+        self.kind = kind
+        self.norm1 = RMSNorm(d, cfg.norm_eps, device, dtype)
+        self.mamba = self.mlstm = self.slstm = None
+        if kind == "mamba2":
+            self.mamba = SSM.Mamba2(d, cfg.ssm_state, cfg.ssm_head_dim,
+                                    device, dtype, f32_dtype)
+        elif kind == "mlstm":
+            self.mlstm = XL.MLSTM(d, cfg.n_heads, device, dtype, f32_dtype)
+        elif kind == "slstm":
+            self.slstm = XL.SLSTM(d, cfg.n_heads, device, dtype, f32_dtype)
+        else:
+            raise ValueError(kind)
+
+    @property
+    def mixer(self) -> nn.Module:
+        return self.mamba or self.mlstm or self.slstm
+
+    def init_(self, generator, dtype=None) -> None:
+        self.norm1.init_()
+        self.mixer.init_(generator, dtype)
+
+
+def make_layer(cfg: ModelConfig, kind: str, device=None, dtype=torch.float32,
+               f32_dtype=torch.float32) -> nn.Module:
+    if kind.startswith("attn"):
+        return DecoderLayer(cfg, kind, device, dtype, f32_dtype)
+    return RecurrentLayer(cfg, kind, device, dtype, f32_dtype)
+
+
 class Model(nn.Module):
     """The port's parameter tree: ``embed.table``, ``final_norm.scale``,
-    ``layers.<i>.{norm1,attn,norm2,mlp|moe}.*`` and, untied,
-    ``lm_head.w``.  Construction allocates uninitialised parameters
-    (``device="meta"`` allocates none); ``init_params`` draws them.
-    Without ``dtype`` they are the masters, in ``cfg.param_dtype`` with
-    the MoE routers in float32 (the reference's ``moe_init``); with it,
-    every parameter has that dtype (a served copy)."""
+    ``layers.<i>.{norm1,attn,norm2,mlp|moe}.*`` or
+    ``layers.<i>.{norm1,mamba|mlstm|slstm}.*``, zamba2's
+    ``shared_attn.{norm1,attn,norm2,mlp}.*`` and, untied, ``lm_head.w``.
+    Construction allocates uninitialised parameters (``device="meta"``
+    allocates none); ``init_params`` draws them.  Without ``dtype`` they
+    are the masters, in ``cfg.param_dtype`` with the MoE routers and the
+    recurrent blocks' ``A_log``, ``D``, ``dt_bias`` and ``fbias`` in
+    float32 (the reference's initialisers); with it, every parameter has
+    that dtype (a served copy)."""
 
     def __init__(self, cfg: ModelConfig, device=None, dtype=None):
         super().__init__()
         check_supported(cfg)
-        router_dtype = dtype or torch.float32
+        f32_dtype = dtype or torch.float32
         dtype = dtype or getattr(torch, cfg.param_dtype)
         self.cfg = cfg
         self.embed = Embedding(cfg.vocab_size, cfg.d_model, device, dtype)
         self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, device, dtype)
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, cfg.layer_kind(i), device, dtype, router_dtype)
+            make_layer(cfg, cfg.layer_kind(i), device, dtype, f32_dtype)
             for i in range(cfg.n_layers))
+        self.shared_attn = (
+            DecoderLayer(cfg, "attn", device, dtype, f32_dtype)
+            if cfg.shared_attn_period else None)
         self.lm_head = None
         if not cfg.tie_embeddings:
             self.lm_head = nn.ParameterDict(
@@ -170,12 +221,15 @@ def cast_params(model: Model, dtype) -> Model:
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None, dtype=None) -> Model:
-    """The masters (``cfg.param_dtype``, MoE routers in float32) drawn
-    from ``generator`` on ``device`` (``None`` is the GPU and raises
-    without one; the generator must live there too): the reference's
-    initialisers' distributions — truncated normal on [-2, 2] over
-    √fan_in (the experts' over d and f), the embedding at std d^-½,
-    norms and biases zero — not their values.
+    """The masters (``cfg.param_dtype``, MoE routers and the recurrent
+    blocks' constant leaves in float32) drawn from ``generator`` on
+    ``device`` (``None`` is the GPU and raises without one; the
+    generator must live there too): the reference's initialisers'
+    distributions — truncated normal on [-2, 2] over √fan_in (the
+    experts' over d and f; ``conv_w`` at std 0.5, the mLSTM ``gates`` at
+    0.01), the embedding at std d^-½, norms and biases zero — not their
+    values.  The constant leaves take the reference's values: ``A_log``
+    log(linspace(1, 16, H)), ``D`` 1, ``dt_bias`` 0, ``fbias`` 3.
 
     With ``dtype``, every parameter is allocated in it and drawn in its
     master dtype, one parameter at a time, then cast: the values equal
@@ -189,6 +243,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     model.embed.init_(generator, master)
     for layer in model.layers:
         layer.init_(generator, master)
+    if model.shared_attn is not None:
+        model.shared_attn.init_(generator, master)
     model.final_norm.init_()
     if model.lm_head is not None:
         normal_init_(model.lm_head["w"], generator, dtype=master)
@@ -227,6 +283,21 @@ def attn_sublayer(layer: DecoderLayer, cfg: ModelConfig, x, positions,
     return x, k, v, aux
 
 
+def recurrent_sublayer(layer: RecurrentLayer, x):
+    """One recurrent layer over a whole sequence -> (x, its final state
+    as a cache entry: ``state``/``conv`` (the conv tail, in ``x``'s
+    dtype), ``c``/``n``/``m`` or ``c``/``n``/``h``/``m``)."""
+    h = layer.norm1(x)
+    if layer.kind == "mamba2":
+        y, state, conv = SSM.mamba2_apply(layer.mamba, h)
+        return x + y, {"state": state, "conv": conv}
+    if layer.kind == "mlstm":
+        y, state = XL.mlstm_apply(layer.mlstm, h)
+        return x + y, dict(zip("cnm", state))
+    y, state = XL.slstm_apply(layer.slstm, h)
+    return x + y, dict(zip("cnhm", state))
+
+
 def embed_inputs(model: Model, tokens=None, embeds=None) -> torch.Tensor:
     """The residual stream's input in the activation dtype: the scaled
     token embedding, or ``embeds`` (the modality-frontend stub)."""
@@ -255,10 +326,18 @@ def forward_hidden(model: Model, tokens=None, *, embeds=None,
     x = embed_inputs(model, tokens, embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), device=x.device)
-    for layer in model.layers:
-        x, _, _, layer_aux = attn_sublayer(layer, cfg, x, positions, q_chunk)
-        if layer_aux is not None:
-            aux = aux + layer_aux
+    shared = shared_groups(cfg)
+    for i, layer in enumerate(model.layers):
+        if isinstance(layer, RecurrentLayer):
+            x, _ = recurrent_sublayer(layer, x)
+        else:
+            x, _, _, layer_aux = attn_sublayer(layer, cfg, x, positions,
+                                               q_chunk)
+            if layer_aux is not None:
+                aux = aux + layer_aux
+        if i in shared:
+            x, _, _, _ = attn_sublayer(model.shared_attn, cfg, x, positions,
+                                       q_chunk)
     return model.final_norm(x), aux
 
 

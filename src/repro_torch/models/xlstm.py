@@ -1,0 +1,237 @@
+"""xLSTM blocks (Beck et al. 2024): mLSTM (matrix memory, chunkwise
+parallel) and sLSTM (scalar memory, strictly recurrent with head-blocked
+recurrent weights) — the port of ``repro/models/xlstm.py``.
+
+mLSTM runs chunkwise like the Mamba2 SSD path: the decay-masked
+quadratic form within a chunk, a carried (C, n, m) state across chunks
+(a Python loop over the reference's ``lax.scan`` steps).  sLSTM is a
+loop over time, one cell a token.  The reference's simplifications
+stay: the forget gate through ``logsigmoid`` in both cells, per-chunk
+stabilisation for mLSTM (the exact stabilised recurrence in decode),
+projection factor 2 (mLSTM) and 1 (sLSTM).
+
+As in ``ssm``, a bfloat16 operand that meets a float32 one in an einsum
+is cast to float32 first (``jnp.einsum`` promotes, ``torch.einsum``
+refuses), and a product of two bfloat16 operands stays bfloat16.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.models.layers import RMSNorm, normal_init_, param
+
+#: the stabiliser ``m`` of an empty memory
+M_EMPTY = -1e30
+
+
+# ---------------------------------------------------------------------------
+# mLSTM
+# ---------------------------------------------------------------------------
+
+
+class MLSTM(nn.Module):
+    """``qkv`` (d, 3·2d), ``gates`` (d, 2H), ``ogate`` (d, 2d),
+    ``norm.scale`` (2d,), ``out`` (2d, d) and ``fbias`` (H,;
+    ``f32_dtype``, float32 in the masters)."""
+
+    def __init__(self, d: int, n_heads: int, device=None,
+                 dtype=torch.float32, f32_dtype=torch.float32):
+        super().__init__()
+        d_in = 2 * d
+        self.n_heads = n_heads
+        self.qkv = param((d, 3 * d_in), device, dtype)
+        self.gates = param((d, 2 * n_heads), device, dtype)
+        self.ogate = param((d, d_in), device, dtype)
+        self.norm = RMSNorm(d_in, device=device, dtype=dtype)
+        self.out = param((d_in, d), device, dtype)
+        self.fbias = param((n_heads,), device, f32_dtype)
+
+    def init_(self, generator, dtype=None) -> None:
+        normal_init_(self.qkv, generator, dtype=dtype)
+        normal_init_(self.gates, generator, 0.01, dtype)
+        normal_init_(self.ogate, generator, dtype=dtype)
+        normal_init_(self.out, generator, dtype=dtype)
+        with torch.no_grad():
+            self.fbias.fill_(3.0)          # open forget gates
+        self.norm.init_()
+
+
+def _mlstm_proj(p: MLSTM, x: torch.Tensor):
+    b, s, d = x.shape
+    hn = p.n_heads
+    hp = 2 * d // hn
+    q, k, v = torch.chunk(x @ p.qkv, 3, dim=-1)
+    q = q.reshape(b, s, hn, hp)
+    k = k.reshape(b, s, hn, hp) / math.sqrt(hp)
+    v = v.reshape(b, s, hn, hp)
+    li, lf = torch.chunk((x @ p.gates).float(), 2, dim=-1)  # (B,S,H) each
+    lf = F.logsigmoid(lf + p.fbias)
+    o = torch.sigmoid(x @ p.ogate)
+    return q, k, v, li, lf, o
+
+
+def mlstm_init_state(batch: int, n_heads: int, head_dim: int,
+                     device=None) -> tuple:
+    """The empty (C, n, m) memory, float32."""
+    return (torch.zeros((batch, n_heads, head_dim, head_dim),
+                        dtype=torch.float32, device=device),
+            torch.zeros((batch, n_heads, head_dim), dtype=torch.float32,
+                        device=device),
+            torch.full((batch, n_heads), M_EMPTY, dtype=torch.float32,
+                       device=device))
+
+
+def mlstm_apply(p: MLSTM, x: torch.Tensor, *, chunk: int = 128):
+    """x: (B, S, D), S a multiple of ``min(chunk, S)`` -> (y (B, S, D),
+    the final (C, n, m))."""
+    b, s, d = x.shape
+    q, k, v, li, lf, o = _mlstm_proj(p, x)
+    chunk = min(chunk, s)
+    assert s % chunk == 0
+    causal = torch.ones((chunk, chunk), dtype=torch.bool,
+                        device=x.device).tril()[None, :, :, None]
+    c_st, n_st, m_st = mlstm_init_state(b, p.n_heads, q.shape[-1], x.device)
+    hs = []
+    for c0 in range(0, s, chunk):
+        qt, kt, vt = (t[:, c0:c0 + chunk] for t in (q, k, v))   # (B,L,H,P)
+        lit, lft = li[:, c0:c0 + chunk], lf[:, c0:c0 + chunk]    # (B,L,H)
+        qf, kf, vf = qt.float(), kt.float(), vt.float()
+        cum = torch.cumsum(lft, dim=1)
+        total = cum[:, -1, :]                                    # (B,H)
+        # log strength of token j at the chunk origin: a_j = li_j - cum_j
+        a = lit - cum
+        amax = torch.cummax(a, dim=1).values                     # max_{j<=i}
+        m_new = cum + torch.maximum(m_st[:, None, :], amax)      # (B,L,H)
+        # inter: the decayed carry-in (the state carries scale e^{-m_st})
+        inter_w = torch.exp(m_st[:, None, :] + cum - m_new)
+        num_inter = (torch.einsum("blhp,bhqp->blhq", qf, c_st)
+                     * inter_w[..., None])
+        den_inter = torch.einsum("blhp,bhp->blh", qf, n_st) * inter_w
+        # intra: w_ij = exp(cum_i - cum_j + li_j - m_i), j <= i; masked
+        # before the exp
+        logw = (cum - m_new)[:, :, None, :] + a[:, None, :, :]
+        w = torch.exp(torch.where(causal, logw, -1e30))
+        sw = torch.einsum("blhp,bmhp->blmh", qt, kt) * w          # (B,L,L,H)
+        num = num_inter + torch.einsum("blmh,bmhp->blhp", sw, vf)
+        den = den_inter + sw.sum(dim=2)
+        hs.append(num / torch.maximum(den.abs(),
+                                      torch.exp(-m_new))[..., None])
+        # the state update, stabilised at the chunk end's max
+        m_out = total + torch.maximum(m_st, amax[:, -1, :])       # (B,H)
+        carry_w = torch.exp(m_st + total - m_out)
+        in_w = torch.exp(total[:, None, :] + a - m_out[:, None, :])
+        c_st = c_st * carry_w[..., None, None] + torch.einsum(
+            "bmhp,bmhq->bhpq", vf * in_w[..., None], kf)
+        n_st = n_st * carry_w[..., None] + torch.einsum(
+            "bmhp,bmh->bhp", kf, in_w)
+        m_st = m_out
+    h = torch.cat(hs, dim=1).reshape(b, s, 2 * d)
+    y = p.norm(h.to(x.dtype) * o)
+    return y @ p.out, (c_st, n_st, m_st)
+
+
+def mlstm_decode(p: MLSTM, x: torch.Tensor, state: tuple):
+    """One token: x (B, 1, D), state (C, n, m) -> (y, new state)."""
+    b, _, d = x.shape
+    q, k, v, li, lf, o = _mlstm_proj(p, x)
+    qt, kt, vt = q[:, 0], k[:, 0], v[:, 0]                       # (B,H,P)
+    lit, lft = li[:, 0], lf[:, 0]                                # (B,H)
+    c_st, n_st, m_st = state
+    m_new = torch.maximum(lft + m_st, lit)
+    fw = torch.exp(lft + m_st - m_new)
+    iw = torch.exp(lit - m_new)
+    c_new = (c_st * fw[..., None, None]
+             + torch.einsum("bhp,bhq->bhpq", vt, kt) * iw[..., None, None])
+    n_new = n_st * fw[..., None] + kt * iw[..., None]
+    qf = qt.float()
+    num = torch.einsum("bhp,bhqp->bhq", qf, c_new)
+    den = torch.einsum("bhp,bhp->bh", qf, n_new)
+    h = num / torch.maximum(den.abs(), torch.exp(-m_new))[..., None]
+    y = p.norm(h.reshape(b, 1, 2 * d).to(x.dtype) * o)
+    return y @ p.out, (c_new, n_new, m_new)
+
+
+# ---------------------------------------------------------------------------
+# sLSTM
+# ---------------------------------------------------------------------------
+
+
+class SLSTM(nn.Module):
+    """``wx`` (d, 4d), ``r`` (H, P, 4P), ``fbias`` (d,; ``f32_dtype``,
+    float32 in the masters), ``norm.scale`` (d,) and ``out`` (d, d)."""
+
+    def __init__(self, d: int, n_heads: int, device=None,
+                 dtype=torch.float32, f32_dtype=torch.float32):
+        super().__init__()
+        hp = d // n_heads
+        self.n_heads = n_heads
+        self.wx = param((d, 4 * d), device, dtype)
+        self.r = param((n_heads, hp, 4 * hp), device, dtype)
+        self.fbias = param((d,), device, f32_dtype)
+        self.norm = RMSNorm(d, device=device, dtype=dtype)
+        self.out = param((d, d), device, dtype)
+
+    def init_(self, generator, dtype=None) -> None:
+        # r scales over its shape[0] (the heads), as the reference's
+        # normal_init does
+        for w in (self.wx, self.r, self.out):
+            normal_init_(w, generator, dtype=dtype)
+        with torch.no_grad():
+            self.fbias.fill_(3.0)
+        self.norm.init_()
+
+
+def slstm_init_state(batch: int, d: int, device=None) -> tuple:
+    """The empty (c, n, h, m) memory, float32."""
+    zeros = [torch.zeros((batch, d), dtype=torch.float32, device=device)
+             for _ in range(3)]
+    return (*zeros, torch.full((batch, d), M_EMPTY, dtype=torch.float32,
+                               device=device))
+
+
+def _slstm_cell(r: torch.Tensor, fbias: torch.Tensor, xg: torch.Tensor,
+                state: tuple):
+    """xg: (B, 4d) float32 pre-activations from x; r: (H, P, 4P) float32.
+
+    The recurrent term is computed per head, then flattened to (B, 4d)
+    and split into the four gates, so the gates interleave heads (the
+    reference's layout, which ``wx`` and ``r`` assume)."""
+    c, n, h, m = state
+    hn, hp = r.shape[:2]
+    rg = torch.einsum("bhp,hpq->bhq", h.reshape(-1, hn, hp), r)
+    zi, zf, zz, zo = torch.chunk(xg + rg.reshape(xg.shape), 4, dim=-1)
+    lf = F.logsigmoid(zf + fbias)
+    m_new = torch.maximum(lf + m, zi)
+    i = torch.exp(zi - m_new)
+    f = torch.exp(lf + m - m_new)
+    c_new = f * c + i * torch.tanh(zz)
+    n_new = f * n + i
+    h_new = torch.sigmoid(zo) * c_new / torch.clamp(n_new, min=1.0)
+    return c_new, n_new, h_new, m_new
+
+
+def slstm_apply(p: SLSTM, x: torch.Tensor):
+    """x: (B, S, D) -> (y (B, S, D), the final (c, n, h, m)): one cell a
+    token, in order."""
+    b, s, d = x.shape
+    xg = (x @ p.wx).float()                                 # (B,S,4d)
+    r = p.r.float()
+    state = slstm_init_state(b, d, x.device)
+    hs = []
+    for t in range(s):
+        state = _slstm_cell(r, p.fbias, xg[:, t], state)
+        hs.append(state[2])
+    y = p.norm(torch.stack(hs, dim=1).to(x.dtype))
+    return y @ p.out, state
+
+
+def slstm_decode(p: SLSTM, x: torch.Tensor, state: tuple):
+    """One token: x (B, 1, D), state (c, n, h, m) -> (y, new state)."""
+    xg = (x[:, 0] @ p.wx).float()
+    state = _slstm_cell(p.r.float(), p.fbias, xg, state)
+    y = p.norm(state[2][:, None, :].to(x.dtype))
+    return y @ p.out, state
