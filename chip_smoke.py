@@ -135,7 +135,23 @@ Phases, each of which makes the script exit non-zero when it fails:
    both served bfloat16 models: phase 11's timings and trace, the
    launches of a prefill and of a decode step, beside bounds counted
    from the stack (the shared block's weights read at each of its 13
-   uses, the states read and written a step).
+   uses, the states read and written a step);
+14. the encoder–decoder (``Model.encoder``, the decoder layers' cross
+   blocks, the ``ck``/``cv``/``enc_out`` cache; no Pallas kernel lies on
+   this path either), after phase 13 has freed its models:
+   seamless-m4t-large-v2 (a) at full width cut to 2 encoder + 2 decoder
+   layers, float32, weights drawn on the CPU, batch 2, a 32-token
+   prompt over 200 encoder frames (padded non-causal tiles): prefill and
+   4 greedy steps on the card against the CPU within 1e-4 of max
+   |logits|, the same tokens; (b) at full width and depth (24 + 24),
+   batch 4, a 128-token prompt over 128 frames, 32 greedy steps: decode
+   against ``forward`` within 2e-3 in float32, bfloat16 reported, every
+   logit finite; (c) the served bfloat16 model: phase 11's timings,
+   trace and launches beside bounds counted for an encoder–decoder
+   (``encdec_bounds``: decode reads the decoder's weights and the tied
+   table, not the encoder's, and every layer's cross ck/cv; prefill
+   adds the encoder's non-causal products and the cross products), and
+   one prefill over 1024 encoder frames beside its own bound.
 
 The third-to-last line of standard output is the card's ``nvidia-smi``
 name and power limit, the second-to-last ``{"kernels": [...]}``, and
@@ -1984,13 +2000,14 @@ def recorded_routes():
         MOE.route = route
 
 
-def lm_greedy(model, tokens, steps: int, q_chunk: int) -> tuple:
-    """Prefill ``tokens``, then ``steps`` greedy decode steps -> (every
-    logits tensor, prefill's first; the tokens fed)."""
+def lm_greedy(model, tokens, steps: int, q_chunk: int, **enc) -> tuple:
+    """Prefill ``tokens`` (an encoder–decoder's encoder input in
+    ``enc``), then ``steps`` greedy decode steps -> (every logits
+    tensor, prefill's first; the tokens fed)."""
     from repro_torch.models import decode as DEC
 
     logits, cache = DEC.prefill(model, tokens, smax=tokens.shape[1] + steps,
-                                q_chunk=q_chunk)
+                                q_chunk=q_chunk, **enc)
     out, fed = [logits], []
     for _ in range(steps):
         fed.append(logits.argmax(-1))
@@ -2000,26 +2017,35 @@ def lm_greedy(model, tokens, steps: int, q_chunk: int) -> tuple:
 
 
 def lm_cross_device(cfg, layers: int = LM_CHECK_LAYERS,
-                    prompt: int = LM_CHECK_PROMPT) -> dict:
-    """(a) The full-width model cut to ``layers`` layers, in float32
-    activations, drawn on the CPU from seed 0: prefill of ``prompt``
-    tokens and every decode step's logits on the card against the CPU's
-    within 1e-4 of max |logits|, the same greedy tokens and, for a MoE,
-    the same experts for every token in every layer."""
+                    prompt: int = LM_CHECK_PROMPT, batch: int = 1,
+                    enc_frames: int = 0) -> dict:
+    """(a) The full-width model cut to ``layers`` layers (an
+    encoder–decoder's encoder too, fed ``enc_frames`` frames drawn after
+    the tokens), in float32 activations, drawn on the CPU from seed 0:
+    prefill of ``prompt`` tokens and every decode step's logits on the
+    card against the CPU's within 1e-4 of max |logits|, the same greedy
+    tokens and, for a MoE, the same experts for every token in every
+    layer."""
     from repro_torch.models import model as MDL
 
-    cfg = dataclasses.replace(cfg, n_layers=layers,
-                              activation_dtype="float32")
+    cfg = dataclasses.replace(
+        cfg, n_layers=layers, activation_dtype="float32",
+        encoder_layers=layers if cfg.is_enc_dec else 0)
     t0 = time.perf_counter()
     model = MDL.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    tokens = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (1, prompt)))
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (batch, prompt)))
+    enc = ({"enc_embeds": torch.from_numpy(rng.standard_normal(
+        (batch, enc_frames, cfg.d_model), dtype=np.float32))}
+        if cfg.is_enc_dec else {})
     runs, routes = {}, {}
     for dev in ("cpu", DEVICE):
         model = model.to(dev)          # moves the parameters in place
         with recorded_routes() as calls:
             runs[dev] = lm_greedy(model, tokens.to(dev), LM_CHECK_STEPS,
-                                  min(prompt, LM_Q_CHUNK))
+                                  min(prompt, LM_Q_CHUNK),
+                                  **{k: v.to(dev) for k, v in enc.items()})
             sync()
         routes[dev] = [r.gate_idx.cpu() for r in calls]
     (want, want_fed), (got, got_fed) = runs["cpu"], runs[DEVICE]
@@ -2037,16 +2063,17 @@ def lm_cross_device(cfg, layers: int = LM_CHECK_LAYERS,
     if not torch.equal(got_fed.cpu(), want_fed):
         raise AssertionError(f"lm serving (a): greedy tokens differ: card "
                              f"{got_fed.tolist()} CPU {want_fed.tolist()}")
-    return dict(layers=cfg.n_layers, prompt=prompt,
-                steps=LM_CHECK_STEPS, rel_errs=errs,
+    return dict(layers=cfg.n_layers, prompt=prompt, batch=batch,
+                enc_frames=enc_frames, steps=LM_CHECK_STEPS, rel_errs=errs,
                 tokens=got_fed.tolist(), route_calls=len(routes["cpu"]),
                 seconds=time.perf_counter() - t0)
 
 
 def lm_decode_check(model, kw, steps: int = LM_GEN) -> tuple:
     """The last of ``steps`` decode steps' logits against ``forward``
-    over the prompt and the fed tokens (``tests/test_arch_smoke.py``'s
-    check) -> (its relative error, every logit finite)."""
+    over the prompt and the fed tokens (an encoder–decoder's over the
+    same encoder input; ``tests/test_arch_smoke.py``'s check) -> (its
+    relative error, every logit finite)."""
     from repro_torch.launch import serve
     from repro_torch.models import decode as DEC
     from repro_torch.models import model as MDL
@@ -2055,8 +2082,9 @@ def lm_decode_check(model, kw, steps: int = LM_GEN) -> tuple:
     logits, cache = DEC.prefill(model, smax=prompt + steps,
                                 q_chunk=LM_Q_CHUNK, **kw)
     fed, last = serve.decode(model, cache, logits.argmax(-1), steps)
+    enc = {k: v for k, v in kw.items() if k != "tokens"}
     full, _ = MDL.forward(model, torch.cat([kw["tokens"], fed], 1),
-                          q_chunk=LM_Q_CHUNK)
+                          q_chunk=LM_Q_CHUNK, **enc)
     a, b = full[:, -1], last[:, 0]
     finite = all(bool(torch.isfinite(t).all()) for t in (logits, last, full))
     return max_abs_err(a, b) / float(a.abs().max()), finite
@@ -2619,6 +2647,171 @@ def run_lm_recurrent(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the encoder–decoder (Model.encoder, cross-attention)
+# ---------------------------------------------------------------------------
+
+#: The encoder–decoder slice's model, served at full width and depth
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+#: (a): batch and encoder frames of the card-against-CPU check (200 is
+#: no multiple of a flash chunk: the non-causal tiles pad their keys)
+ENCDEC_CHECK_BATCH, ENCDEC_CHECK_FRAMES = 2, 200
+#: (c): the encoder frames of the one long prefill, and its timed calls
+#: (~1.5 s each: ~64 flash tiles a layer in the encoder)
+ENCDEC_LONG_FRAMES, ENCDEC_LONG_REPS = 1024, 3
+
+
+def encdec_bounds(cfg, model, enc_frames: int) -> dict:
+    """The least times for an encoder–decoder's work (``LM_BATCH``
+    sequences of ``LM_PROMPT`` tokens over ``enc_frames`` encoder
+    frames).
+
+    Decode reads, a step, the decoder's bfloat16 weights and the tied
+    table for the unembedding — not the encoder's, which prefill alone
+    uses — the self-attention cache's filled slots (writing one), and
+    every layer's cross ``ck``/``cv``, at the HBM rate.  Prefill's
+    products at the bfloat16 tensor-core peak: the encoder's matrices
+    over every frame and its non-causal attention (every frame against
+    every frame), the decoder's matrices over every prompt token but
+    the cross ``wk``/``wv``, which run over every frame, causal
+    self-attention, cross attention (every token against every frame),
+    and the last token's unembedding."""
+    def nbytes(params):
+        return sum(p.numel() * p.element_size() for p in params)
+
+    def matrices(mod):
+        return sum(p.numel() for p in mod.parameters() if p.ndim == 2)
+
+    b, s, e, item = LM_BATCH, LM_PROMPT, enc_frames, model.dtype.itemsize
+    n_dec, n_enc = cfg.n_layers, cfg.encoder_layers
+    heads = cfg.n_heads * cfg.head_dim
+    weight_bytes = nbytes(model.parameters())
+    encoder_bytes = (nbytes(model.encoder.parameters())
+                     + nbytes(model.enc_final_norm.parameters()))
+    read = weight_bytes - encoder_bytes
+    slot = n_dec * 2 * b * cfg.n_kv_heads * cfg.head_dim * item
+    kv_bytes = sum(slot * (s + i + 2) for i in range(LM_GEN)) / LM_GEN
+    cross_bytes = slot * e
+    cross_kv = sum(layer.cross.wk.numel() + layer.cross.wv.numel()
+                   for layer in model.layers)
+    encoder_ops = (2 * sum(matrices(layer) for layer in model.encoder) * b * e
+                   + 2 * 2 * b * n_enc * heads * e * e)
+    decoder_ops = (2 * (sum(matrices(layer) for layer in model.layers)
+                        - cross_kv) * b * s
+                   + 2 * cross_kv * b * e
+                   + 2 * 2 * b * n_dec * heads * s * (s + 1) // 2
+                   + 2 * 2 * b * n_dec * heads * s * e
+                   + 2 * cfg.d_model * cfg.vocab_size * b)
+    ops = encoder_ops + decoder_ops
+    return dict(weight_bytes=weight_bytes, encoder_bytes=encoder_bytes,
+                read_bytes_per_token=read,
+                kv_bytes_per_token=kv_bytes + cross_bytes,
+                cross_bytes_per_token=cross_bytes, enc_frames=e,
+                prefill_ops=ops, prefill_encoder_ops=encoder_ops,
+                prefill_bound_ms=ops / BF16_TENSOR_OPS_PER_S * 1e3,
+                decode_bound_ms=(read + kv_bytes + cross_bytes)
+                / HBM_BYTES_PER_S * 1e3)
+
+
+def run_lm_encdec(card: str) -> dict:
+    """(a) card against CPU at full width, 2 + 2 layers, float32, batch 2,
+    200 encoder frames; (b) seamless-m4t-large-v2 at full width and
+    depth: decode against ``forward`` in float32 (rel ≤ 2e-3) and in
+    bfloat16 (reported), every logit finite; (c) the served model's
+    prefill ms, decode ms/token, tok/s, peak memory and launches beside
+    ``encdec_bounds``, and a prefill over ``ENCDEC_LONG_FRAMES`` frames.
+    Fails on any mismatch or non-finite logit."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import decode as DEC
+    from repro_torch.models import model as MDL
+
+    t_phase = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    cfg = get_config(ENCDEC_ARCH)
+    out = {"arch": cfg.name, "params": cfg.param_count(),
+           "cross_device": lm_cross_device(
+               cfg, batch=ENCDEC_CHECK_BATCH,
+               enc_frames=ENCDEC_CHECK_FRAMES)}
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, activation_dtype="float32")
+    masters = MDL.init_params(cfg32, torch.Generator(DEVICE).manual_seed(0),
+                              DEVICE)
+    kw = serve.prompt_inputs(cfg, LM_BATCH, LM_PROMPT, DEVICE)
+    rel32, finite32 = lm_decode_check(masters, kw)
+    del masters
+    torch.cuda.empty_cache()
+    if not finite32 or rel32 > 2e-3:
+        raise AssertionError(f"lm encdec (b): float32 decode != forward "
+                             f"(rel {rel32}, bound 2e-3; finite {finite32})")
+    model = serve.load_model(cfg, DEVICE, seed=0)   # the same draws
+    rel16, finite16 = lm_decode_check(model, kw)
+    if not finite16:
+        raise AssertionError("lm encdec (b): non-finite bfloat16 logits")
+    load_s = time.perf_counter() - t0
+
+    out.update(lm_timings(model, kw, card, LM_TRACE_STEPS))
+    out.update(encdec_bounds(cfg, model, kw["enc_embeds"].shape[1]))
+    frames = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (LM_BATCH, ENCDEC_LONG_FRAMES, cfg.d_model),
+        dtype=np.float32)).to(DEVICE)
+    long_kw = dict(kw, enc_embeds=frames)
+    logits, _ = DEC.prefill(model, smax=LM_PROMPT + LM_GEN,
+                            q_chunk=LM_Q_CHUNK, **long_kw)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("lm encdec (c): non-finite logits over "
+                             f"{ENCDEC_LONG_FRAMES} frames")
+    del logits
+    long_bounds = encdec_bounds(cfg, model, ENCDEC_LONG_FRAMES)
+    out["long_prefill"] = dict(
+        enc_frames=ENCDEC_LONG_FRAMES,
+        prefill_ms=cuda_ms(lambda: DEC.prefill(
+            model, smax=LM_PROMPT + LM_GEN, q_chunk=LM_Q_CHUNK, **long_kw),
+            ENCDEC_LONG_REPS),
+        **{k: long_bounds[k] for k in ("prefill_ops", "prefill_encoder_ops",
+                                       "prefill_bound_ms")})
+    out.update(
+        batch=LM_BATCH, prompt=LM_PROMPT, gen=LM_GEN, q_chunk=LM_Q_CHUNK,
+        decode_vs_forward_rel_float32=rel32,
+        decode_vs_forward_rel_bfloat16=rel16, load_and_check_s=load_s,
+        held_before_bytes=held)
+    del model, frames, long_kw
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+
+    x = out["cross_device"]
+    log(f"lm encdec (a) {cfg.name} at full width, {x['layers']} encoder + "
+        f"{x['layers']} decoder layers, float32, batch {x['batch']}, prompt "
+        f"{x['prompt']} over {x['enc_frames']} encoder frames, {x['steps']} "
+        f"decode steps: card equals CPU within {max(x['rel_errs']):.2e} of "
+        f"max |logits| (bound 1e-4), the same greedy tokens {x['tokens']} "
+        f"({x['seconds']:.1f} s) ({card})")
+    log(f"lm encdec (b) {cfg.name} full width and depth ({cfg.encoder_layers}"
+        f" + {cfg.n_layers} layers, {out['params']} parameters), batch "
+        f"{LM_BATCH}, prompt {LM_PROMPT} over {LM_PROMPT} frames, {LM_GEN} "
+        f"decode steps: decode vs forward rel {rel32:.2e} in float32 (bound "
+        f"2e-3), {rel16:.2e} in bfloat16 (no bound); every logit finite "
+        f"({card})")
+    tag = "lm encdec"
+    log_lm_timings(tag, out, card)
+    log(f"{tag} (c) launches: prefill {out['prefill_launches']}, decode "
+        f"{out['decode_launches_per_step']:.0f} a step; decode reads "
+        f"{out['read_bytes_per_token']} weight bytes of "
+        f"{out['weight_bytes']} (the encoder's {out['encoder_bytes']} not) "
+        f"and {out['cross_bytes_per_token']} bytes of cross ck/cv a step; "
+        f"prefill bound: {out['prefill_encoder_ops']:.4g} of the "
+        f"operations in the encoder ({card})")
+    x = out["long_prefill"]
+    log(f"{tag} (c) prefill over {x['enc_frames']} encoder frames: "
+        f"{x['prefill_ms']:.3f} ms (mean of {ENCDEC_LONG_REPS}; bound "
+        f"{x['prefill_bound_ms']:.3f} ms: {x['prefill_ops']:.4g} bfloat16 "
+        f"operations, "
+        f"{x['prefill_encoder_ops']:.4g} in the encoder) ({card})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -2682,6 +2875,7 @@ def main() -> int:
     lm_serving = run_lm_serving(smi)
     lm_moe = run_lm_moe(smi)
     lm_recurrent = run_lm_recurrent(smi)
+    lm_encdec = run_lm_encdec(smi)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -2694,7 +2888,7 @@ def main() -> int:
          "continuous": continuous, "verifier": verifier,
          "baselines": baselines, "distributed": distributed,
          "lm_serving": lm_serving, "lm_moe": lm_moe,
-         "lm_recurrent": lm_recurrent},
+         "lm_recurrent": lm_recurrent, "lm_encdec": lm_encdec},
         indent=1))
     log(smi)
     log(json.dumps({"kernels": [

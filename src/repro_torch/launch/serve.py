@@ -1,7 +1,9 @@
 """Serving launcher: batched prefill + greedy decode against a cache
-(k/v for attention, a fixed-size state for the recurrent layers) for
-the decoder-only architectures — attention (dense or MoE), zamba2's
-hybrid Mamba2 stack, xLSTM — the port of ``repro/launch/serve.py``.
+(k/v for attention, a fixed-size state for the recurrent layers, the
+encoder output's cross k/v for an encoder–decoder) for every
+architecture — attention (dense or MoE), zamba2's hybrid Mamba2 stack,
+xLSTM, seamless-m4t's encoder–decoder — the port of
+``repro/launch/serve.py``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
         [--reduced] --batch 4 --prompt-len 32 --gen 16 [--device cuda]
@@ -15,7 +17,8 @@ cpu`` runs on the CPU.  Weights are drawn from seed 0 on the device
 into the activation dtype, which the server then holds (each parameter
 drawn in its master dtype and cast, so no master copy of the whole
 model is made); the prompt is drawn from numpy seed 0, as the
-reference's.
+reference's, and an encoder–decoder's encoder input is ``--prompt-len``
+frames of the audio frontend stub drawn after it.
 """
 from __future__ import annotations
 
@@ -45,14 +48,21 @@ def load_model(cfg: ModelConfig, device=None, seed: int = 0) -> MDL.Model:
 def prompt_inputs(cfg: ModelConfig, batch: int, prompt_len: int, device,
                   seed: int = 0) -> dict:
     """Seeded prompt tokens (B, S), or frame/patch embeddings (B, S, D)
-    for a vision frontend (the modality stub), as ``prefill`` keywords."""
+    for a vision frontend (the modality stub), and an encoder–decoder's
+    ``enc_embeds`` (B, S, D), as ``prefill`` keywords: the reference
+    launcher's draws, in its order."""
     rng = np.random.default_rng(seed)
+
+    def frames():
+        return torch.from_numpy(rng.standard_normal(
+            (batch, prompt_len, cfg.d_model), dtype=np.float32)).to(device)
+
     tokens = rng.integers(0, cfg.vocab_size, (batch, prompt_len))
-    if cfg.frontend == "vision":
-        embeds = rng.standard_normal((batch, prompt_len, cfg.d_model),
-                                     dtype=np.float32)
-        return {"embeds": torch.from_numpy(embeds).to(device)}
-    return {"tokens": torch.from_numpy(tokens).to(device)}
+    kw = ({"embeds": frames()} if cfg.frontend == "vision"
+          else {"tokens": torch.from_numpy(tokens).to(device)})
+    if cfg.is_enc_dec:
+        kw["enc_embeds"] = frames()
+    return kw
 
 
 def decode(model: MDL.Model, cache: dict, tok: torch.Tensor, steps: int):

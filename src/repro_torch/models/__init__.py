@@ -1,5 +1,5 @@
 """The language-model stack: layers, attention, the Mixture-of-Experts
-FFN, the recurrent blocks (Mamba2, mLSTM, sLSTM), the decoder model, the
-serving path (prefill and cache decode) and the converter from the
-reference's parameter trees — ports of ``repro/models`` for the
-decoder-only layer kinds."""
+FFN, the recurrent blocks (Mamba2, mLSTM, sLSTM), the model (decoder-only
+or encoder–decoder), the serving path (prefill and cache decode) and the
+converter from the reference's parameter trees — ports of
+``repro/models`` for every configured layer kind."""

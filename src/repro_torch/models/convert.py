@@ -7,8 +7,11 @@ leading ``n_groups`` axis) and an unrolled ``tail`` list
 ``g·period + j`` is ``blocks[j]`` at index ``g``; the tail follows.
 zamba2's shared attention block is one subtree (``shared_attn``) in the
 parameters, and in a cache the extra ``blocks[period]``, one entry a
-group.  Leaves keep their names and layout, so every leaf copies as it
-is.
+group.  An encoder–decoder's ``encoder`` stack maps onto
+``Model.encoder`` the same way, at its own depth (``encoder_layers``);
+its decoder layers carry the cross leaves (``norm_cross``, ``cross``,
+and in a cache ``ck``/``cv``).  Leaves keep their names and layout, so
+every leaf copies as it is.
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.model import layer_plan
+from repro_torch.models.model import encoder_config, layer_plan
 
 
 def _flatten(tree, prefix: str = "") -> dict:
@@ -28,16 +31,27 @@ def _flatten(tree, prefix: str = "") -> dict:
     return {prefix[:-1]: tree}
 
 
-def reference_layers(stack: dict, cfg: ModelConfig) -> list[dict]:
-    """A reference ``{"blocks", "tail"}`` stack (parameters or cache),
-    as one flat ``{leaf path: array}`` dict a layer in layer order."""
-    period, n_groups, tail_kinds = layer_plan(cfg)
+def reference_layers(stack: dict, cfg: ModelConfig,
+                     depth: int | None = None) -> list[dict]:
+    """A reference ``{"blocks", "tail"}`` stack (parameters or cache) of
+    ``depth`` layers (the decoder's ``n_layers`` by default; pass the
+    encoder's configuration and ``encoder_layers`` for its stack), as
+    one flat ``{leaf path: array}`` dict a layer in layer order."""
+    period, n_groups, tail_kinds = layer_plan(cfg, depth)
+    groups = {np.shape(v)[0] for j in range(period)
+              for v in _flatten(stack["blocks"][j]).values()}
+    if groups != {n_groups} or len(stack["tail"]) != len(tail_kinds):
+        raise ValueError(
+            f"the stack holds {groups} scanned groups and a tail of "
+            f"{len(stack['tail'])}; a depth of "
+            f"{depth or cfg.n_layers} needs {n_groups} and "
+            f"{len(tail_kinds)}")
     layers = [
         {k: np.asarray(v)[g] for k, v in _flatten(stack["blocks"][j]).items()}
         for g in range(n_groups) for j in range(period)
     ]
     layers += [{k: np.asarray(v) for k, v in _flatten(entry).items()}
-               for entry in stack["tail"][:len(tail_kinds)]]
+               for entry in stack["tail"]]
     return layers
 
 
@@ -65,4 +79,9 @@ def params_from_reference(tree: dict, cfg: ModelConfig) -> dict:
                       for k, v in _flatten(tree["shared_attn"]).items()})
     for i, layer in enumerate(reference_layers(tree["decoder"], cfg)):
         state.update({f"layers.{i}.{k}": v for k, v in layer.items()})
+    if "encoder" in tree:
+        state["enc_final_norm.scale"] = tree["enc_final_norm"]["scale"]
+        for i, layer in enumerate(reference_layers(
+                tree["encoder"], encoder_config(cfg), cfg.encoder_layers)):
+            state.update({f"encoder.{i}.{k}": v for k, v in layer.items()})
     return {k: torch.from_numpy(np.array(v)) for k, v in state.items()}

@@ -8,13 +8,17 @@ shared attention block, ``"shared"``: one ``{"k", "v"}`` entry a group
 (``convert.reference_layers`` and ``convert.reference_shared`` map the
 reference's scan-grouped cache onto it):
 
-  attention : k/v (B, Smax, KV, hd) in the activation dtype
+  attention : k/v (B, Smax, KV, hd) in the activation dtype; in an
+              encoder–decoder also the cross block's ``ck``/``cv``
+              (B, S_enc, KV, hd), the encoder output's keys and values
   mamba2    : ``state`` (B, H, P, N) float32, ``conv`` (B, K-1, conv_dim)
               in the activation dtype
   mlstm     : ``c`` (B, H, P, P), ``n`` (B, H, P), ``m`` (B, H), float32
   slstm     : ``c``, ``n``, ``h``, ``m`` (B, d), float32
 
-An empty memory's ``m`` is -1e30.  ``pos`` is a host integer, so a
+An encoder–decoder's cache also holds ``enc_out`` (B, S_enc, D), as
+the reference's does; decoding reads only ``ck``/``cv``.  An empty
+memory's ``m`` is -1e30.  ``pos`` is a host integer, so a
 decode step reads nothing back from the device.  A sliding-window layer
 whose ``smax`` exceeds ``RING_THRESHOLD`` windows holds a ring of
 ``window`` slots instead, written at ``pos % window``.
@@ -41,8 +45,9 @@ from repro_torch.models.model import (
     RecurrentLayer,
     attn_sublayer,
     cast_params,
-    check_supported,
+    cross_attention,
     embed_inputs,
+    encode,
     ffn_sublayer,
     logits_of,
     recurrent_sublayer,
@@ -68,15 +73,21 @@ def _is_ring(cfg: ModelConfig, kind: str, entry: dict) -> bool:
 
 
 def _entry(cfg: ModelConfig, kind: str, batch: int, smax: int,
-           device) -> dict:
-    """An empty cache entry of one layer of ``kind``."""
+           device, enc_len: int | None = None) -> dict:
+    """An empty cache entry of one layer of ``kind`` (with ``enc_len``,
+    an attention layer's cross ``ck``/``cv`` too)."""
     adt = getattr(torch, cfg.activation_dtype)
     f32 = dict(dtype=torch.float32, device=device)
     if kind.startswith("attn"):
-        shape = (batch, _ring_len(cfg, kind, smax), cfg.n_kv_heads,
-                 cfg.head_dim)
-        return {"k": torch.zeros(shape, dtype=adt, device=device),
-                "v": torch.zeros(shape, dtype=adt, device=device)}
+        def zeros(slen):
+            return torch.zeros((batch, slen, cfg.n_kv_heads, cfg.head_dim),
+                               dtype=adt, device=device)
+
+        slen = _ring_len(cfg, kind, smax)
+        entry = {"k": zeros(slen), "v": zeros(slen)}
+        if enc_len is not None:
+            entry.update(ck=zeros(enc_len), cv=zeros(enc_len))
+        return entry
     if kind == "mamba2":
         d_in, h = SSM.ssm_dims(cfg.d_model, cfg.ssm_head_dim)
         return {"state": torch.zeros((batch, h, cfg.ssm_head_dim,
@@ -95,12 +106,18 @@ def _entry(cfg: ModelConfig, kind: str, batch: int, smax: int,
 
 
 def init_cache(cfg: ModelConfig, batch: int, smax: int,
-               device=None) -> dict:
-    """An empty cache at ``pos`` 0 (``device=None`` is the GPU)."""
-    check_supported(cfg)
+               device=None, *, enc_len: int = 0) -> dict:
+    """An empty cache at ``pos`` 0 (``device=None`` is the GPU); an
+    encoder–decoder's holds ``enc_len`` encoder positions."""
     device = resolve_device(device)
-    cache = {"layers": [_entry(cfg, cfg.layer_kind(i), batch, smax, device)
+    cross = enc_len if cfg.is_enc_dec else None
+    cache = {"layers": [_entry(cfg, cfg.layer_kind(i), batch, smax, device,
+                               cross)
                         for i in range(cfg.n_layers)], "pos": 0}
+    if cfg.is_enc_dec:
+        cache["enc_out"] = torch.zeros(
+            (batch, enc_len, cfg.d_model),
+            dtype=getattr(torch, cfg.activation_dtype), device=device)
     if cfg.shared_attn_period:
         cache["shared"] = [_entry(cfg, "attn", batch, smax, device)
                            for _ in shared_groups(cfg)]
@@ -115,7 +132,8 @@ def init_cache(cfg: ModelConfig, batch: int, smax: int,
 def _attn_decode(layer, cfg: ModelConfig, x, entry: dict, pos: int,
                  positions):
     """One attention layer (or the shared block) for one token, its k/v
-    written into ``entry`` at ``pos``."""
+    written into ``entry`` at ``pos``; a cross block attends over the
+    entry's ``ck``/``cv``."""
     b = x.shape[0]
     h = layer.norm1(x)
     q, k, v = A.qkv(layer.attn, h, positions, cfg.rope_theta)
@@ -129,6 +147,8 @@ def _attn_decode(layer, cfg: ModelConfig, x, entry: dict, pos: int,
               if layer.kind == "attn_local" and not ring else None)
     out = A.decode_attention(q, entry["k"], entry["v"], pos, window)
     x = x + out.reshape(b, 1, -1) @ layer.attn.wo
+    if layer.cross is not None:
+        x = cross_attention(layer, x, entry["ck"], entry["cv"])
     # a MoE routes the step as a chunk of one token a row
     x, _ = ffn_sublayer(layer, cfg, x)
     return x
@@ -212,18 +232,26 @@ def _capture(cfg: ModelConfig, kind: str, k: torch.Tensor, smax: int):
 
 
 @torch.no_grad()
-def prefill(model: Model, tokens=None, *, embeds=None, smax: int | None = None,
-            q_chunk: int = 1024):
+def prefill(model: Model, tokens=None, *, embeds=None, enc_tokens=None,
+            enc_embeds=None, smax: int | None = None, q_chunk: int = 1024):
     """Forward pass over the prompt; returns (float32 last-token logits
-    (B, 1, V), cache at ``pos`` = prompt length)."""
+    (B, 1, V), cache at ``pos`` = prompt length).  An encoder–decoder
+    runs its encoder once over ``enc_tokens`` or ``enc_embeds`` and
+    keeps each layer's cross ``ck``/``cv`` and ``enc_out``."""
     cfg = model.cfg
     model = cast_params(model, cfg.activation_dtype)
+    enc_out = (encode(model, enc_tokens, enc_embeds, q_chunk)
+               if cfg.is_enc_dec else None)
     x = embed_inputs(model, tokens, embeds)
     s = x.shape[1]
     smax = smax or s
     if smax < s:
         raise ValueError(f"smax {smax} is shorter than the prompt ({s})")
     positions = torch.arange(s, device=x.device)[None, :]
+
+    def capture(kind, entry):
+        return {n: _capture(cfg, kind, t, smax) if n in ("k", "v") else t
+                for n, t in entry.items()}
 
     layers: list[dict[str, Any]] = []
     shared_entries: list[dict[str, Any]] = []
@@ -233,17 +261,18 @@ def prefill(model: Model, tokens=None, *, embeds=None, smax: int | None = None,
             x, entry = recurrent_sublayer(layer, x)
             layers.append(entry)
         else:
-            x, k, v, _ = attn_sublayer(layer, cfg, x, positions, q_chunk)
-            layers.append({"k": _capture(cfg, layer.kind, k, smax),
-                           "v": _capture(cfg, layer.kind, v, smax)})
+            x, entry, _ = attn_sublayer(layer, cfg, x, positions, q_chunk,
+                                        enc_out=enc_out)
+            layers.append(capture(layer.kind, entry))
         if i in shared:
-            x, k, v, _ = attn_sublayer(model.shared_attn, cfg, x, positions,
-                                       q_chunk)
-            shared_entries.append({"k": _capture(cfg, "attn", k, smax),
-                                   "v": _capture(cfg, "attn", v, smax)})
+            x, entry, _ = attn_sublayer(model.shared_attn, cfg, x, positions,
+                                        q_chunk)
+            shared_entries.append(capture("attn", entry))
 
     logits = logits_of(model, model.final_norm(x[:, -1:, :]))
     cache = {"layers": layers, "pos": s}
+    if cfg.is_enc_dec:
+        cache["enc_out"] = enc_out
     if cfg.shared_attn_period:
         cache["shared"] = shared_entries
     return logits, cache

@@ -1,4 +1,5 @@
-"""Config-driven decoder LM — the port of ``repro/models/model.py``.
+"""Config-driven LM, decoder-only or encoder–decoder — the port of
+``repro/models/model.py``.
 
 The reference stacks super-blocks of one layer-kind period under
 ``lax.scan`` (``layer_plan``) with an unrolled tail.  The port holds
@@ -16,11 +17,19 @@ the reference), and the recurrent kinds — ``mamba2``
 (``repro_torch.models.xlstm``) — which carry no FFN.  zamba2's shared
 attention block (``Model.shared_attn``, one parameter set) runs after
 every full group of ``shared_attn_period`` layers, not after the tail.
-An encoder-decoder configuration raises ``NotImplementedError`` naming
-the later slice of ``ROADMAP.md`` that ports it.  ``loss_fn`` waits for
-the training slice.
+
+An encoder–decoder (seamless-m4t-large-v2) adds ``Model.encoder``, a
+stack of dense attention layers built from ``encoder_config(cfg)`` and
+run without the causal mask over the encoder input (``enc_tokens``
+through the shared embedding, or the frontend stub's ``enc_embeds``),
+then ``enc_final_norm``; each decoder layer adds a cross-attention
+block (``norm_cross``, ``cross``) between its self-attention and its
+FFN, which attends over the whole encoder output with no RoPE.
+``loss_fn`` waits for the training slice.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 from torch import nn
@@ -40,16 +49,6 @@ from repro_torch.models.layers import (
     unembed,
 )
 from repro_torch.models.moe import MoE, moe_apply
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a configuration whose layers a
-    later slice of the port builds (the message names that slice)."""
-    if cfg.is_enc_dec:
-        raise NotImplementedError(
-            f"{cfg.name}: the port builds decoder-only stacks; this "
-            f"configuration waits for the language-model queue of "
-            f"ROADMAP.md §1, item 4, encoder-decoder (cross-attention)")
 
 
 # ---------------------------------------------------------------------------
@@ -89,18 +88,36 @@ def dims(cfg: ModelConfig) -> A.AttnDims:
     return A.AttnDims(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
 
 
+def encoder_config(cfg: ModelConfig) -> ModelConfig:
+    """The encoder stack's configuration: every layer ``"attn"`` with the
+    dense ``mlp`` of ``d_ff`` (no MoE, no layer pattern, no shared
+    block), as the reference builds and runs its encoder."""
+    return dataclasses.replace(cfg, moe=None, block_pattern=None,
+                               local_global_period=None,
+                               shared_attn_period=0)
+
+
 class DecoderLayer(nn.Module):
-    """norm1 → attention → residual, then norm2 → MoE or MLP →
-    residual."""
+    """norm1 → attention → residual; with ``cross``, norm_cross →
+    cross-attention over the encoder output → residual; then norm2 →
+    MoE or MLP → residual.  The cross block never has QKV biases or QK
+    norms, whatever the configuration says (the reference builds it
+    with ``attn_init``'s defaults)."""
 
     def __init__(self, cfg: ModelConfig, kind: str, device=None,
-                 dtype=torch.float32, router_dtype=torch.float32):
+                 dtype=torch.float32, router_dtype=torch.float32,
+                 cross: bool = False):
         super().__init__()
         d = cfg.d_model
         self.kind = kind
         self.norm1 = RMSNorm(d, cfg.norm_eps, device, dtype)
         self.attn = A.Attention(d, dims(cfg), cfg.qkv_bias, cfg.qk_norm,
                                 device, dtype)
+        self.norm_cross = self.cross = None
+        if cross:
+            self.norm_cross = RMSNorm(d, cfg.norm_eps, device, dtype)
+            self.cross = A.Attention(d, dims(cfg), False, False, device,
+                                     dtype)
         self.norm2 = self.mlp = self.moe = None
         if cfg.moe is not None or cfg.d_ff:
             self.norm2 = RMSNorm(d, cfg.norm_eps, device, dtype)
@@ -113,6 +130,9 @@ class DecoderLayer(nn.Module):
     def init_(self, generator, dtype=None) -> None:
         self.norm1.init_()
         self.attn.init_(generator, dtype)
+        if self.cross is not None:
+            self.norm_cross.init_()
+            self.cross.init_(generator, dtype)
         ffn = self.moe if self.moe is not None else self.mlp
         if ffn is not None:
             self.norm2.init_()
@@ -152,15 +172,19 @@ class RecurrentLayer(nn.Module):
 def make_layer(cfg: ModelConfig, kind: str, device=None, dtype=torch.float32,
                f32_dtype=torch.float32) -> nn.Module:
     if kind.startswith("attn"):
-        return DecoderLayer(cfg, kind, device, dtype, f32_dtype)
+        return DecoderLayer(cfg, kind, device, dtype, f32_dtype,
+                            cross=cfg.is_enc_dec)
     return RecurrentLayer(cfg, kind, device, dtype, f32_dtype)
 
 
 class Model(nn.Module):
     """The port's parameter tree: ``embed.table``, ``final_norm.scale``,
-    ``layers.<i>.{norm1,attn,norm2,mlp|moe}.*`` or
+    ``layers.<i>.{norm1,attn,norm2,mlp|moe}.*`` (an encoder–decoder's
+    with ``norm_cross``, ``cross``) or
     ``layers.<i>.{norm1,mamba|mlstm|slstm}.*``, zamba2's
-    ``shared_attn.{norm1,attn,norm2,mlp}.*`` and, untied, ``lm_head.w``.
+    ``shared_attn.{norm1,attn,norm2,mlp}.*``, an encoder–decoder's
+    ``encoder.<i>.{norm1,attn,norm2,mlp}.*`` and
+    ``enc_final_norm.scale``, and, untied, ``lm_head.w``.
     Construction allocates uninitialised parameters (``device="meta"``
     allocates none); ``init_params`` draws them.  Without ``dtype`` they
     are the masters, in ``cfg.param_dtype`` with the MoE routers and the
@@ -170,7 +194,6 @@ class Model(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device=None, dtype=None):
         super().__init__()
-        check_supported(cfg)
         f32_dtype = dtype or torch.float32
         dtype = dtype or getattr(torch, cfg.param_dtype)
         self.cfg = cfg
@@ -182,6 +205,14 @@ class Model(nn.Module):
         self.shared_attn = (
             DecoderLayer(cfg, "attn", device, dtype, f32_dtype)
             if cfg.shared_attn_period else None)
+        self.encoder = self.enc_final_norm = None
+        if cfg.is_enc_dec:
+            enc = encoder_config(cfg)
+            self.encoder = nn.ModuleList(
+                DecoderLayer(enc, enc.layer_kind(i), device, dtype)
+                for i in range(cfg.encoder_layers))
+            self.enc_final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, device,
+                                          dtype)
         self.lm_head = None
         if not cfg.tie_embeddings:
             self.lm_head = nn.ParameterDict(
@@ -227,7 +258,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     generator must live there too): the reference's initialisers'
     distributions — truncated normal on [-2, 2] over √fan_in (the
     experts' over d and f; ``conv_w`` at std 0.5, the mLSTM ``gates`` at
-    0.01), the embedding at std d^-½, norms and biases zero — not their
+    0.01; the cross-attention projections over d), the embedding at std
+    d^-½, norms (``enc_final_norm`` too) and biases zero — not their
     values.  The constant leaves take the reference's values: ``A_log``
     log(linspace(1, 16, H)), ``D`` 1, ``dt_bias`` 0, ``fbias`` 3.
 
@@ -245,6 +277,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         layer.init_(generator, master)
     if model.shared_attn is not None:
         model.shared_attn.init_(generator, master)
+    if model.encoder is not None:
+        for layer in model.encoder:
+            layer.init_(generator, master)
+        model.enc_final_norm.init_()
     model.final_norm.init_()
     if model.lm_head is not None:
         normal_init_(model.lm_head["w"], generator, dtype=master)
@@ -268,19 +304,50 @@ def ffn_sublayer(layer: DecoderLayer, cfg: ModelConfig, x):
     return x, None
 
 
+def cross_attention(layer: DecoderLayer, x, ck, cv,
+                    q_chunk: int | None = None):
+    """The cross block: norm_cross → queries from ``cross.wq`` (no RoPE,
+    no bias, no norm) over the encoder's keys/values ``ck``/``cv``
+    (B, S_enc, KV, hd) → ``cross.wo`` → residual.  Over a sequence
+    (``q_chunk``) the flash tiles cover every encoder position; for one
+    token (``q_chunk=None``) the decode attention does."""
+    b, s = x.shape[:2]
+    h, _, hd = layer.cross.dims
+    q = (layer.norm_cross(x) @ layer.cross.wq).reshape(b, s, h, hd)
+    if q_chunk is None:
+        out = A.decode_attention(q, ck, cv, ck.shape[1] - 1)
+    else:
+        out = A.flash_attention(q, ck, cv, causal=False, q_chunk=q_chunk,
+                                kv_chunk=q_chunk)
+    return x + out.reshape(b, s, -1) @ layer.cross.wo
+
+
+def cross_kv(layer: DecoderLayer, enc_out):
+    """The encoder output's keys and values for one decoder layer's cross
+    block -> (ck, cv), each (B, S_enc, KV, hd)."""
+    _, kv_h, hd = layer.cross.dims
+    shape = enc_out.shape[:2] + (kv_h, hd)
+    return ((enc_out @ layer.cross.wk).reshape(shape),
+            (enc_out @ layer.cross.wv).reshape(shape))
+
+
 def attn_sublayer(layer: DecoderLayer, cfg: ModelConfig, x, positions,
-                  q_chunk: int):
-    """One layer over a whole sequence -> (x, k, v, aux) (k, v roped;
-    aux the MoE's, or None)."""
+                  q_chunk: int, causal: bool = True, enc_out=None):
+    """One layer over a whole sequence -> (x, its cache entry: k, v
+    (roped) and, with a cross block, ck, cv; aux the MoE's, or None)."""
     b, s = x.shape[:2]
     h = layer.norm1(x)
     q, k, v = A.qkv(layer.attn, h, positions, cfg.rope_theta)
     window = cfg.sliding_window if layer.kind == "attn_local" else None
-    out = A.flash_attention(q, k, v, causal=True, window=window,
+    out = A.flash_attention(q, k, v, causal=causal, window=window,
                             q_chunk=q_chunk, kv_chunk=q_chunk)
     x = x + out.reshape(b, s, -1) @ layer.attn.wo
+    entry = {"k": k, "v": v}
+    if layer.cross is not None:
+        entry["ck"], entry["cv"] = cross_kv(layer, enc_out)
+        x = cross_attention(layer, x, entry["ck"], entry["cv"], q_chunk)
     x, aux = ffn_sublayer(layer, cfg, x)
-    return x, k, v, aux
+    return x, entry, aux
 
 
 def recurrent_sublayer(layer: RecurrentLayer, x):
@@ -316,13 +383,35 @@ def logits_of(model: Model, x: torch.Tensor) -> torch.Tensor:
     return softcap(logits.float(), model.cfg.logit_softcap)
 
 
+def encode(model: Model, enc_tokens=None, enc_embeds=None,
+           q_chunk: int = 1024) -> torch.Tensor:
+    """The encoder stack over ``enc_tokens`` (through the shared
+    embedding) or ``enc_embeds`` (B, S_enc, D), the audio frontend stub:
+    non-causal self-attention at positions 0…S_enc-1, then
+    ``enc_final_norm`` -> enc_out (B, S_enc, D).  Either input is
+    required (``ValueError``)."""
+    if enc_tokens is None and enc_embeds is None:
+        raise ValueError(f"{model.cfg.name} is an encoder-decoder: pass "
+                         "enc_tokens or enc_embeds")
+    enc = encoder_config(model.cfg)
+    x = embed_inputs(model, enc_tokens, enc_embeds)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    for layer in model.encoder:
+        x, _, _ = attn_sublayer(layer, enc, x, positions, q_chunk,
+                                causal=False)
+    return model.enc_final_norm(x)
+
+
 @torch.no_grad()
 def forward_hidden(model: Model, tokens=None, *, embeds=None,
-                   q_chunk: int = 1024):
+                   enc_tokens=None, enc_embeds=None, q_chunk: int = 1024):
     """Forward pass up to (and including) the final norm -> (x, aux),
-    aux the sum of the layers' MoE auxiliaries (0 without MoE)."""
+    aux the sum of the layers' MoE auxiliaries (0 without MoE).  An
+    encoder–decoder takes ``enc_tokens`` or ``enc_embeds``."""
     cfg = model.cfg
     model = cast_params(model, cfg.activation_dtype)
+    enc_out = (encode(model, enc_tokens, enc_embeds, q_chunk)
+               if cfg.is_enc_dec else None)
     x = embed_inputs(model, tokens, embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), device=x.device)
@@ -331,21 +420,26 @@ def forward_hidden(model: Model, tokens=None, *, embeds=None,
         if isinstance(layer, RecurrentLayer):
             x, _ = recurrent_sublayer(layer, x)
         else:
-            x, _, _, layer_aux = attn_sublayer(layer, cfg, x, positions,
-                                               q_chunk)
+            x, _, layer_aux = attn_sublayer(layer, cfg, x, positions,
+                                            q_chunk, enc_out=enc_out)
             if layer_aux is not None:
                 aux = aux + layer_aux
         if i in shared:
-            x, _, _, _ = attn_sublayer(model.shared_attn, cfg, x, positions,
-                                       q_chunk)
+            x, _, _ = attn_sublayer(model.shared_attn, cfg, x, positions,
+                                    q_chunk)
     return model.final_norm(x), aux
 
 
 @torch.no_grad()
-def forward(model: Model, tokens=None, *, embeds=None, q_chunk: int = 1024):
+def forward(model: Model, tokens=None, *, embeds=None, enc_tokens=None,
+            enc_embeds=None, q_chunk: int = 1024):
     """Full forward pass -> (float32 logits (B, S, V), aux).  ``embeds``
-    bypasses the token embedding.  ``aux`` is the MoE load-balancing
-    loss of the reference, summed over the layers (0 without MoE)."""
+    bypasses the token embedding; an encoder–decoder takes its encoder
+    input as ``enc_tokens`` or ``enc_embeds`` (B, S_enc, D).  ``aux`` is
+    the MoE load-balancing loss of the reference, summed over the layers
+    (0 without MoE)."""
     model = cast_params(model, model.cfg.activation_dtype)
-    x, aux = forward_hidden(model, tokens, embeds=embeds, q_chunk=q_chunk)
+    x, aux = forward_hidden(model, tokens, embeds=embeds,
+                            enc_tokens=enc_tokens, enc_embeds=enc_embeds,
+                            q_chunk=q_chunk)
     return logits_of(model, x), aux

@@ -2,19 +2,21 @@
 ``repro_torch.models``, ``repro_torch.launch.serve``) against the JAX
 package on the CPU.
 
-For every reduced decoder-only configuration (the attention ones
-gemma-2b, gemma-7b, qwen2.5-32b, gemma3-27b, chameleon-34b; with a
+For every reduced configuration (the attention ones gemma-2b,
+gemma-7b, qwen2.5-32b, gemma3-27b, chameleon-34b; with a
 Mixture-of-Experts FFN deepseek-moe-16b and arctic-480b; the recurrent
 ones zamba2-7b — Mamba2 layers and the shared attention block — and
-xlstm-350m) one reference parameter tree, its constant leaves (norm
-scales, QKV biases, and the recurrent blocks' ``conv_b``, ``dt_bias``,
-``D``, ``A_log`` and ``fbias``) perturbed so that they matter, goes
-into both packages (``convert.params_from_reference``); the same seeded
-numpy prompt (embeddings for chameleon) then goes through ``forward``,
-``prefill`` (logits and every layer's captured cache entry — k/v, or
-the recurrent state — mapped through the same layer order, and
-zamba2's shared-block k/v of each group) and three ``decode_step``s
-fed the reference's greedy tokens.  At S = 32 the recurrent layers scan
+xlstm-350m; the encoder–decoder seamless-m4t-large-v2) one reference
+parameter tree, its constant leaves (norm scales, QKV biases, and the
+recurrent blocks' ``conv_b``, ``dt_bias``, ``D``, ``A_log`` and
+``fbias``) perturbed so that they matter, goes into both packages
+(``convert.params_from_reference``); the same seeded numpy prompt
+(embeddings for chameleon; seamless's encoder frames, ``enc_embeds``,
+too) then goes through ``forward``, ``prefill`` (logits and every
+layer's captured cache entry — k/v with seamless's cross ck/cv, or the
+recurrent state — mapped through the same layer order, zamba2's
+shared-block k/v of each group and seamless's ``enc_out``) and three
+``decode_step``s fed the reference's greedy tokens.  At S = 32 the recurrent layers scan
 one chunk; ``tests/test_torch_ssm.py`` and ``tests/test_torch_xlstm.py``
 hold them across several.  gemma3 (period 3: two scanned
 groups and a tail of two) covers the layer order and, at ``smax`` 160
@@ -57,9 +59,8 @@ ATTN_ARCHS = ("gemma-2b", "gemma-7b", "qwen2.5-32b", "gemma3-27b",
               "chameleon-34b")
 MOE_ARCHS = ("deepseek-moe-16b", "arctic-480b")
 REC_ARCHS = ("zamba2-7b", "xlstm-350m")
-ARCHS = ATTN_ARCHS + MOE_ARCHS + REC_ARCHS
-#: configurations a later slice builds, and the ROADMAP.md item it is
-LATER = {"seamless-m4t-large-v2": "item 4, encoder-decoder"}
+ENCDEC_ARCHS = ("seamless-m4t-large-v2",)
+ARCHS = ATTN_ARCHS + MOE_ARCHS + REC_ARCHS + ENCDEC_ARCHS
 #: leaves the initialisers set to constants (norm scales and biases
 #: zero; the recurrent blocks' ``A_log``, ``D``, ``dt_bias``, ``fbias``)
 CONSTANT = ("scale", ".bq", ".bk", ".bv", ".conv_b", ".A_log", ".D",
@@ -121,17 +122,25 @@ def port_model(tree, cfg):
 
 
 def inputs(cfg):
-    """The reference's and the port's prefill keywords, the same values."""
+    """The reference's and the port's prefill keywords, the same values
+    (an encoder–decoder's ``enc_embeds`` of S frames too)."""
     rng = np.random.default_rng(1)
     if cfg.frontend == "vision":
-        e = rng.standard_normal((B, S, cfg.d_model), dtype=np.float32)
-        return {"embeds": jnp.asarray(e)}, {"embeds": torch.from_numpy(e)}
-    t = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
-    return {"tokens": jnp.asarray(t)}, {"tokens": torch.from_numpy(t)}
+        kw = {"embeds": rng.standard_normal((B, S, cfg.d_model),
+                                            dtype=np.float32)}
+    else:
+        kw = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)
+                                     ).astype(np.int32)}
+    if cfg.is_enc_dec:
+        kw["enc_embeds"] = rng.standard_normal((B, S, cfg.d_model),
+                                               dtype=np.float32)
+    return ({k: jnp.asarray(v) for k, v in kw.items()},
+            {k: torch.from_numpy(v) for k, v in kw.items()})
 
 
 def reference_run(cfg) -> dict:
-    """forward (logits and aux), prefill (logits, per-layer k/v) and
+    """forward (logits and aux), prefill (logits, per-layer k/v and an
+    encoder–decoder's ``enc_out``) and
     STEPS greedy decode steps of the reference, with the tokens it fed;
     for a MoE configuration each batch row alone, the results stacked
     (``aux`` holds one value a row)."""
@@ -150,7 +159,7 @@ def reference_run(cfg) -> dict:
         logits, cache = pre(params, kw)
         out.update(prefill=logits, kv=convert.reference_layers(cache, cfg),
                    shared=convert.reference_shared(cache, cfg),
-                   fed=[], decode=[])
+                   enc_out=cache.get("enc_out"), fed=[], decode=[])
         for _ in range(STEPS):
             tok = jnp.argmax(logits, -1).astype(jnp.int32)
             logits, cache = step(params, cache, tok)
@@ -175,7 +184,7 @@ def reference_run(cfg) -> dict:
                       for i in range(cfg.n_layers)],
                "fed": [cat(*f) for f in zip(*(r["fed"] for r in rows))],
                "decode": [cat(*d) for d in zip(*(r["decode"] for r in rows))],
-               "shared": [], "pos": rows[0]["pos"]}
+               "shared": [], "enc_out": None, "pos": rows[0]["pos"]}
     out.update(tree=tree, kw=tkw, smax=smax)
     return out
 
@@ -229,17 +238,6 @@ def test_gemma_2b_is_the_slices_model():
     assert cfg.param_count() == 2_506_096_640
 
 
-@pytest.mark.parametrize("arch", sorted(LATER))
-def test_configs_of_later_slices_raise_naming_their_queue_entry(arch):
-    cfg = registry.get_reduced(arch)
-    for build in (lambda: M.Model(cfg, device="meta"),
-                  lambda: M.init_params(cfg, torch.Generator(), "cpu"),
-                  lambda: D.init_cache(cfg, 1, 8, device="cpu")):
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP.md §1, {LATER[arch]}"):
-            build()
-
-
 # ---------------------------------------------------------------------------
 # the model against the reference
 # ---------------------------------------------------------------------------
@@ -263,8 +261,9 @@ def test_forward_equals_reference(arch, reference):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_logits_and_every_layers_kv_equal_reference(arch, reference):
-    """Logits, every layer's entry (k/v, or each leaf of the recurrent
-    state) and, for zamba2, the shared block's k/v of each group."""
+    """Logits, every layer's entry (k/v and seamless's cross ck/cv, or
+    each leaf of the recurrent state), zamba2's shared-block k/v of each
+    group and seamless's ``enc_out``."""
     ref = reference(arch)
     cfg = port_cfg(arch)
     logits, cache = D.prefill(port_model(ref["tree"], cfg), smax=ref["smax"],
@@ -282,6 +281,9 @@ def test_prefill_logits_and_every_layers_kv_equal_reference(arch, reference):
                                         ref["shared"])):
         for name in "kv":
             assert rel_err(got[name], want[name]) <= TOL, (g, name)
+    assert ("enc_out" in cache) == (ref["enc_out"] is not None)
+    if cfg.is_enc_dec:
+        assert rel_err(cache["enc_out"], ref["enc_out"]) <= TOL
     if cfg.sliding_window:      # gemma3: the local layers hold a ring
         slots = [e["k"].shape[1] for e in cache["layers"]]
         assert slots == [16, 16, 160, 16, 16, 160, 16, 16]
@@ -378,12 +380,18 @@ def test_cast_params_casts_the_recurrent_constants(arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_init_cache_matches_reference(arch):
     """Every entry's leaves, shapes and dtypes (and zamba2's shared
-    entries, one a group); zeros, but for an empty memory's ``m``."""
+    entries, one a group; seamless's cross ck/cv and ``enc_out`` over
+    ``enc_len`` frames); zeros, but for an empty memory's ``m``."""
     cfg, ref_cfg = registry.get_reduced(arch), ref_registry.get_reduced(arch)
     smax = SMAX.get(arch, S + 4)
-    cache = D.init_cache(cfg, B, smax, device="cpu")
-    ref = RD.init_cache(ref_cfg, B, smax)
+    cache = D.init_cache(cfg, B, smax, device="cpu", enc_len=S - 3)
+    ref = RD.init_cache(ref_cfg, B, smax, S - 3)
     assert cache["pos"] == 0
+    assert cache.keys() - {"layers", "shared"} == ref.keys() - {"blocks",
+                                                                "tail"}
+    if cfg.is_enc_dec:
+        assert cache["enc_out"].dtype == torch.float32
+        assert np.array_equal(cache["enc_out"].numpy(), ref["enc_out"])
     for got, want in ((cache["layers"], convert.reference_layers(ref, cfg)),
                       (cache.get("shared", []),
                        convert.reference_shared(ref, cfg))):
@@ -465,7 +473,7 @@ def test_recurrent_prompt_must_fill_its_chunks():
 
 @pytest.mark.parametrize("arch", ["gemma3-27b", "qwen2.5-32b",
                                   "deepseek-moe-16b", "zamba2-7b",
-                                  "xlstm-350m"])
+                                  "xlstm-350m", "seamless-m4t-large-v2"])
 def test_init_params_draws_the_reference_distribution(arch):
     """The drawn leaves' truncated normals; the constant leaves exactly
     the reference's values (``A_log`` the correctly rounded float32 of
@@ -569,7 +577,7 @@ def test_launcher_serves_moe_on_the_cpu(capsys):
 @pytest.mark.parametrize("arch, param_dtype", [
     ("gemma-2b", "float32"), ("deepseek-moe-16b", "float32"),
     ("arctic-480b", "bfloat16"), ("zamba2-7b", "float32"),
-    ("xlstm-350m", "bfloat16")])
+    ("xlstm-350m", "bfloat16"), ("seamless-m4t-large-v2", "float32")])
 def test_load_model_equals_the_cast_masters(arch, param_dtype,
                                            monkeypatch):
     """``load_model`` allocates the served dtype and draws each parameter
