@@ -151,7 +151,27 @@ Phases, each of which makes the script exit non-zero when it fails:
    (``encdec_bounds``: decode reads the decoder's weights and the tied
    table, not the encoder's, and every layer's cross ck/cv; prefill
    adds the encoder's non-causal products and the cross products), and
-   one prefill over 1024 encoder frames beside its own bound.
+   one prefill over 1024 encoder frames beside its own bound;
+15. language-model training (``repro_torch.train``,
+   ``repro_torch.launch.train``; the loss, the flash backward and AdamW
+   reach no Pallas kernel either), after phase 14 has freed its model:
+   (a) ``loss_fn``'s loss and every parameter's gradient on the card
+   against the CPU within 1e-4 of that parameter's max |CPU gradient|:
+   gemma-2b at full width cut to 2 layers (batch 1 × 64 tokens), and
+   deepseek-moe-16b (batch 1), zamba2-7b, xlstm-350m and
+   seamless-m4t-large-v2 reduced; (b) gemma-2b at full width and depth
+   through ``launch.train``'s ``Trainer`` at the launcher's sizes (batch
+   8 × 128 tokens, float32 masters and AdamW state, bfloat16
+   activations, ``remat="full"``): 6 steps, every loss finite; step ms
+   split into forward+backward and AdamW (CUDA events), tokens/s, peak
+   memory, launches and the device's idle share of one profiled step,
+   beside ``train_bounds``; 4 steps on one repeated batch from the
+   trained state and from fresh masters, the descent reported; (c)
+   reduced gemma-2b through the ``Trainer`` with a
+   checkpoint every 3 steps and a failure injected at step 4, restored
+   and finished: its final state against an uninterrupted run's
+   (equal bit for bit, or the phase fails), and the card's checkpoint
+   restored onto the CPU.
 
 The third-to-last line of standard output is the card's ``nvidia-smi``
 name and power limit, the second-to-last ``{"kernels": [...]}``, and
@@ -2812,6 +2832,320 @@ def run_lm_encdec(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: language-model training (repro_torch.train, launch.train)
+# ---------------------------------------------------------------------------
+
+#: The slice's model, trained at full width and depth.
+TRAIN_ARCH = "gemma-2b"
+#: (a): depth, batch and tokens of the card-against-CPU gradient check
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 1, 64
+#: (a'): the other families, reduced (a MoE at batch 1), over 32 tokens
+TRAIN_CHECK_ARCHS = ("deepseek-moe-16b", "zamba2-7b", "xlstm-350m",
+                     "seamless-m4t-large-v2")
+#: (b): Trainer steps, timed steps after a warm-up, same-batch steps
+TRAIN_STEPS, TRAIN_REPS, TRAIN_DESCENT_STEPS = 6, 3, 4
+#: (c): reduced gemma-2b steps, checkpoint period, injected failure
+RESUME_STEPS, RESUME_EVERY, RESUME_FAIL_AT = 6, 3, 4
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got − want| / max |want|, inf where either is not finite."""
+    if not (bool(torch.isfinite(got).all())
+            and bool(torch.isfinite(want).all())):
+        return float("inf")
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-30)
+
+
+def train_cross_device(cfg, batch: int, seq: int) -> dict:
+    """(a) ``loss_fn``'s loss and every parameter's gradient on the card
+    against the CPU: float32 activations, the same weights (drawn on the
+    CPU from seed 0) and batch (``TokenPipeline`` seed 0, a few labels
+    -1, an encoder–decoder's ``enc_embeds`` of ``seq`` frames); each
+    gradient within 1e-4 of its max |CPU gradient|."""
+    from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.models import model as MDL
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(cfg, activation_dtype="float32")
+    model = MDL.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    data = TokenPipeline(cfg.vocab_size, seq, batch, 0).batch(0)
+    data["labels"][0, :3] = -1
+    if cfg.is_enc_dec:
+        data["enc_embeds"] = np.random.default_rng(0).standard_normal(
+            (batch, seq, cfg.d_model), dtype=np.float32)
+    runs = {}
+    for dev in ("cpu", DEVICE):
+        model = model.to(dev)          # moves the parameters in place
+        loss, metrics = MDL.loss_fn(
+            model, {k: torch.from_numpy(v).to(dev) for k, v in data.items()},
+            q_chunk=min(seq, LM_Q_CHUNK))
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        runs[dev] = (loss.detach().cpu(), [g.cpu() for g in grads])
+        del loss, grads
+    names = [n for n, _ in model.named_parameters()]
+    errs = {n: rel_err(g, w) for n, g, w in zip(names, runs[DEVICE][1],
+                                                 runs["cpu"][1])}
+    worst = max(errs, key=errs.get)
+    loss_rel = rel_err(runs[DEVICE][0], runs["cpu"][0])
+    if errs[worst] > 1e-4 or loss_rel > 1e-4:
+        raise AssertionError(
+            f"lm train (a) {cfg.name}: card != CPU, loss rel {loss_rel}, "
+            f"worst gradient {worst} rel {errs[worst]} (bound 1e-4)")
+    del model
+    return dict(arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+                batch=batch, seq=seq, loss=float(runs["cpu"][0]),
+                loss_rel=loss_rel, worst_param=worst,
+                worst_rel=errs[worst], n_params=len(names),
+                seconds=time.perf_counter() - t0)
+
+
+def train_bounds(model, batch: int, seq: int) -> dict:
+    """The least times of one step: forward, the recompute of
+    ``remat="full"`` and backward (2×) make 8 × N × tokens matrix-product
+    operations (N the parameters: the tied table is the unembedding),
+    plus the causal attention products (QKᵀ and PV, each 2 × hd
+    operations a query–key pair, 4× for the same passes), at the dense
+    bfloat16 tensor-core peak; AdamW reads p, g, m, v and writes p, m, v
+    in float32, 28 bytes a parameter, at the HBM rate."""
+    cfg = model.cfg
+    n = sum(p.numel() for p in model.parameters())
+    attn = (4 * batch * cfg.n_layers * cfg.n_heads * cfg.head_dim
+            * seq * (seq + 1) // 2)
+    ops = 8 * n * batch * seq + 4 * attn
+    opt_bytes = sum(p.numel() * (p.element_size() * 3 + 4 * 4)
+                    for p in model.parameters())
+    fb_ms = ops / BF16_TENSOR_OPS_PER_S * 1e3
+    opt_ms = opt_bytes / HBM_BYTES_PER_S * 1e3
+    return dict(n=n, train_ops=ops, opt_bytes=opt_bytes,
+                fwd_bwd_bound_ms=fb_ms, opt_bound_ms=opt_ms,
+                step_bound_ms=fb_ms + opt_ms)
+
+
+def train_resume(card: str) -> dict:
+    """(c) Reduced gemma-2b through the ``Trainer`` on the card, 6 steps
+    checkpointed every 3: uninterrupted, and failed at step 4, restored
+    and finished.  The final parameters and moments must be equal bit
+    for bit (a difference fails, reported with its size and leaf), and
+    the last checkpoint, written from the card, restored onto a CPU
+    template equals the card's state."""
+    import tempfile
+
+    from repro_torch.configs.registry import get_reduced
+    from repro_torch.train import loop
+
+    t0 = time.perf_counter()
+    cfg = get_reduced(TRAIN_ARCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        tcfg = loop.TrainerConfig(
+            steps=RESUME_STEPS, seq_len=32, global_batch=4,
+            checkpoint_every=RESUME_EVERY, q_chunk=16, checkpoint_dir=tmp,
+            log_every=100)
+        state_a, hist_a = loop.Trainer(
+            cfg, dataclasses.replace(tcfg, checkpoint_dir=None),
+            device=DEVICE).run()
+        failed = loop.Trainer(cfg, tcfg, device=DEVICE)
+        try:
+            failed.run(injector=loop.FailureInjector(RESUME_FAIL_AT))
+        except RuntimeError as e:
+            if "injected node failure" not in str(e):
+                raise
+        else:
+            raise AssertionError("lm train (c): the failure was not injected")
+        restored_from = failed.ckpt.latest_step()
+        state_b, hist_b = loop.Trainer(cfg, tcfg, device=DEVICE).run(
+            restore=True)
+        tree_a, tree_b = (loop.checkpoint_tree(s) for s in (state_a, state_b))
+        pairs = [(f"params/{n}", t, tree_b["params"][n])
+                 for n, t in tree_a["params"].items()]
+        pairs += [(f"opt/{k}/{n}", t, tree_b["opt"][k][n])
+                  for k in "mv" for n, t in tree_a["opt"][k].items()]
+        diff = {name: float((a - b).abs().max()) for name, a, b in pairs}
+        bitwise = all(torch.equal(a, b) for _, a, b in pairs)
+        cpu_template = {
+            "params": {n: torch.empty(t.shape, dtype=t.dtype)
+                       for n, t in tree_b["params"].items()},
+            "opt": {k: ({n: torch.empty(t.shape, dtype=t.dtype)
+                         for n, t in v.items()} if k in "mv" else v)
+                    for k, v in tree_b["opt"].items()}}
+        on_cpu, _, last = failed.ckpt.restore(cpu_template)
+        cross = all(torch.equal(on_cpu["params"][n], t.cpu())
+                    for n, t in tree_b["params"].items())
+    worst = max(diff, key=diff.get)
+    if not bitwise or not cross:
+        raise AssertionError(
+            f"lm train (c): the resumed run differs from the uninterrupted "
+            f"one by {diff[worst]} at {worst}, or the CPU restore differs "
+            f"({cross})")
+    return dict(steps=RESUME_STEPS, checkpoint_every=RESUME_EVERY,
+                fail_at=RESUME_FAIL_AT, restored_from=restored_from,
+                last_checkpoint=last, bitwise=bitwise,
+                max_abs_diff=diff[worst], worst=worst,
+                losses_a=hist_a, losses_b=hist_b, cpu_restore_equal=cross,
+                seconds=time.perf_counter() - t0)
+
+
+def run_lm_train(card: str) -> dict:
+    """(a) card against CPU: gemma-2b at full width, 2 layers, and the
+    other families reduced; (b) gemma-2b at full width and depth through
+    ``launch.train``'s ``Trainer`` (float32 masters, bfloat16
+    activations, ``remat="full"``, float32 AdamW state; the launcher's
+    batch 8 × 128 tokens, ``q_chunk`` 128): 6 steps, every loss finite;
+    step ms split into forward+backward and AdamW, tokens/s, peak memory
+    and one profiled step beside ``train_bounds``; then 4 steps on one
+    repeated batch at ``AdamWConfig(lr=3e-3, warmup_steps=1,
+    total_steps=10)`` from fresh moments, from the trained state and
+    from fresh masters, the descent reported; (c) ``train_resume``.
+    Fails on any mismatch or non-finite loss."""
+    from repro_torch.configs.registry import get_config, get_reduced
+    from repro_torch.models import model as MDL
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+    from repro_torch.train.steps import build_train_step
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("lm train: the float32 checks need TF32 off")
+    t_phase = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    cfg = get_config(TRAIN_ARCH)
+    checks = [train_cross_device(
+        dataclasses.replace(cfg, n_layers=TRAIN_CHECK_LAYERS),
+        TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ)]
+    for arch in TRAIN_CHECK_ARCHS:
+        rcfg = get_reduced(arch)
+        checks.append(train_cross_device(
+            rcfg, 1 if rcfg.moe is not None else 2, 32))
+    torch.cuda.empty_cache()
+
+    tcfg = loop.TrainerConfig(steps=TRAIN_STEPS)   # the launcher's sizes
+    trainer = loop.Trainer(cfg, tcfg, device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = trainer.init_state()
+    sync()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state, history = trainer.run(state)
+    sync()
+    run_s = time.perf_counter() - t0
+    if not all(np.isfinite(history)):
+        raise AssertionError(f"lm train (b): non-finite losses {history}")
+    model, opt = state["params"], state["opt"]
+    batch = {k: torch.as_tensor(v, device=DEVICE)
+             for k, v in trainer.batch(0).items()}
+    tokens = tcfg.global_batch * tcfg.seq_len
+
+    def step():
+        nonlocal model, opt
+        model, opt, _ = trainer.step_fn(model, opt, batch)
+
+    step_ms = cuda_ms(step, TRAIN_REPS)
+    params = dict(model.named_parameters())
+    events = [[torch.cuda.Event(enable_timing=True) for _ in range(3)]
+              for _ in range(TRAIN_REPS)]
+    for e0, e1, e2 in events:
+        e0.record()
+        loss, _ = MDL.loss_fn(model, batch, q_chunk=tcfg.q_chunk)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        e1.record()
+        _, opt, _ = adamw.apply_updates(trainer.opt_cfg, params,
+                                        dict(zip(params, grads)), opt)
+        e2.record()
+        del loss, grads
+    sync()
+    fb_ms = sum(e0.elapsed_time(e1) for e0, e1, _ in events) / TRAIN_REPS
+    opt_ms = sum(e1.elapsed_time(e2) for _, e1, e2 in events) / TRAIN_REPS
+    peak = torch.cuda.max_memory_allocated()
+    trace = profile_run(f"lm train step {tcfg.global_batch}x{tcfg.seq_len}",
+                        step, card)
+
+    bounds = train_bounds(model, tcfg.global_batch, tcfg.seq_len)
+
+    def same_batch(model) -> list:
+        """``TRAIN_DESCENT_STEPS`` steps on ``batch`` from fresh moments
+        at test_arch_smoke's optimizer -> the losses."""
+        opt_cfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=10)
+        opt = adamw.init_state(opt_cfg, dict(model.named_parameters()))
+        same_step = build_train_step(cfg, opt_cfg, q_chunk=tcfg.q_chunk,
+                                     device=DEVICE)
+        losses = []
+        for _ in range(TRAIN_DESCENT_STEPS):
+            model, opt, metrics = same_step(model, opt, batch)
+            losses.append(float(metrics["loss"]))
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"lm train (b): non-finite losses {losses}")
+        return losses
+
+    # test_arch_smoke's protocol from the trained state (fit to this
+    # batch by the timed steps) and from fresh masters (seed 1)
+    del opt, state, params
+    from_trained = same_batch(model)
+    del model
+    torch.cuda.empty_cache()
+    descent = same_batch(MDL.init_params(
+        cfg, torch.Generator(DEVICE).manual_seed(1), DEVICE))
+    out = {"arch": cfg.name, "cross_device": checks,
+           "history": history, "descent": descent,
+           "descent_from_trained": from_trained,
+           "descends": descent[-1] < descent[0],
+           "batch": tcfg.global_batch, "seq": tcfg.seq_len,
+           "q_chunk": tcfg.q_chunk, "remat": cfg.remat,
+           "activation_dtype": cfg.activation_dtype, "init_s": init_s,
+           "run_s_per_step": run_s / TRAIN_STEPS, "step_ms": step_ms,
+           "fwd_bwd_ms": fb_ms, "opt_ms": opt_ms,
+           "tokens_per_s": tokens * 1e3 / step_ms, "peak_bytes": peak,
+           "held_before_bytes": held, "trace": trace,
+           "launches_per_step": trace["device_events"], **bounds}
+    del trainer
+    torch.cuda.empty_cache()
+    out["resume"] = train_resume(card)
+    out["seconds"] = time.perf_counter() - t_phase
+
+    for x in checks:
+        log(f"lm train (a) {x['arch']} ({x['layers']} layers, d "
+            f"{x['d_model']}), float32, batch {x['batch']} x {x['seq']} "
+            f"tokens: loss {x['loss']:.6f}, card equals CPU within "
+            f"{x['loss_rel']:.2e} (loss) and {x['worst_rel']:.2e} of max "
+            f"|CPU gradient| at {x['worst_param']}, the worst of "
+            f"{x['n_params']} parameters (bound 1e-4) ({x['seconds']:.1f} s)"
+            f" ({card})")
+    log(f"lm train (b) {cfg.name} full width and depth ({out['n']} "
+        f"parameters), float32 masters, {cfg.activation_dtype} "
+        f"activations, remat {cfg.remat}, float32 AdamW state, batch "
+        f"{tcfg.global_batch} x {tcfg.seq_len}: Trainer losses "
+        f"{[round(v, 4) for v in history]}, all finite; one batch "
+        f"{TRAIN_DESCENT_STEPS} times at lr 3e-3 from fresh masters: "
+        f"{[round(v, 4) for v in descent]} "
+        f"({'descends' if out['descends'] else 'DOES NOT DESCEND'}); from "
+        f"the trained state with fresh moments: "
+        f"{[round(v, 4) for v in from_trained]} ({card})")
+    log(f"lm train (b) step {step_ms:.3f} ms (CUDA events, mean of "
+        f"{TRAIN_REPS} after a warm-up; Trainer.run "
+        f"{run_s / TRAIN_STEPS * 1e3:.1f} ms a step on the host clock, its "
+        f"first step included): "
+        f"forward+backward {fb_ms:.3f} ms (bound "
+        f"{out['fwd_bwd_bound_ms']:.3f}: {out['train_ops']:.4g} operations "
+        f"at {BF16_TENSOR_OPS_PER_S:.4g}/s), AdamW {opt_ms:.3f} ms (bound "
+        f"{out['opt_bound_ms']:.3f}: {out['opt_bytes']:.4g} bytes at "
+        f"{HBM_BYTES_PER_S:.4g} B/s); step bound "
+        f"{out['step_bound_ms']:.3f} ms; {out['tokens_per_s']:.1f} "
+        f"tokens/s; peak memory {peak - held} bytes (less the {held} bytes "
+        f"earlier phases held); {trace['device_events']} launches a step, "
+        f"device busy {trace['busy_ms']:.2f} ms of {trace['wall_ms']:.2f} "
+        f"(idle share {trace['idle_share']:.3f}) ({card})")
+    r = out["resume"]
+    log(f"lm train (c) reduced {TRAIN_ARCH}, {r['steps']} steps, a "
+        f"checkpoint every {r['checkpoint_every']}, failure at step "
+        f"{r['fail_at']}, restored from step {r['restored_from']}: final "
+        f"parameters and moments "
+        f"{'equal bit for bit' if r['bitwise'] else 'DIFFER'} (max |diff| "
+        f"{r['max_abs_diff']:.3g} at {r['worst']}); the card's last "
+        f"checkpoint (step {r['last_checkpoint']}) restored onto the CPU "
+        f"equals the card's state; phase {out['seconds']:.1f} s ({card})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -2876,6 +3210,7 @@ def main() -> int:
     lm_moe = run_lm_moe(smi)
     lm_recurrent = run_lm_recurrent(smi)
     lm_encdec = run_lm_encdec(smi)
+    lm_train = run_lm_train(smi)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -2888,7 +3223,8 @@ def main() -> int:
          "continuous": continuous, "verifier": verifier,
          "baselines": baselines, "distributed": distributed,
          "lm_serving": lm_serving, "lm_moe": lm_moe,
-         "lm_recurrent": lm_recurrent, "lm_encdec": lm_encdec},
+         "lm_recurrent": lm_recurrent, "lm_encdec": lm_encdec,
+         "lm_train": lm_train},
         indent=1))
     log(smi)
     log(json.dumps({"kernels": [

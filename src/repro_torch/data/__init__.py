@@ -1,1 +1,2 @@
-"""Synthetic images (copied from ``repro.data``; NumPy only)."""
+"""Synthetic images and token streams (copied from ``repro.data``; NumPy
+only)."""

@@ -7,8 +7,10 @@ The reference's flash path is plain ``lax``: one scan over a static
 list of (q-block, kv-block) tiles with an online softmax.  This is the
 same algorithm in plain PyTorch: a Python loop over the same tile list,
 with the same masks, ``NEG_INF`` and ``1e-37`` guards, and the same
-dtype at each step.  Forward only: the flash backward comes with the
-training slice.
+dtype at each step.  The backward is the reference's custom VJP
+(``_flash_call_bwd``) as a ``torch.autograd.Function``: the forward
+keeps each row's log-sum-exp, and the backward recomputes every tile
+from it.
 """
 from __future__ import annotations
 
@@ -93,16 +95,21 @@ def qkv(p: Attention, x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _block_attend(q, k, v, qpos, kpos, scale, causal, window, kv_len):
-    """One (q-block, kv-block) tile.  q: (B, qc, KV, G, hd); k, v:
-    (B, kc, KV, hd).  Returns the tile's row max, sum of exponentials
-    and exp-weighted values for the online softmax."""
-    s = torch.einsum("bqkgd,bskd->bkgqs", q, k).float() * scale
+def _tile_mask(qpos, kpos, causal, window, kv_len):
     mask = (kpos < kv_len)[None, :]
     if causal:
         mask = mask & (qpos[:, None] >= kpos[None, :])
     if window is not None:
         mask = mask & (qpos[:, None] - kpos[None, :] < window)
+    return mask
+
+
+def _block_attend(q, k, v, qpos, kpos, scale, causal, window, kv_len):
+    """One (q-block, kv-block) tile.  q: (B, qc, KV, G, hd); k, v:
+    (B, kc, KV, hd).  Returns the tile's row max, sum of exponentials
+    and exp-weighted values for the online softmax."""
+    s = torch.einsum("bqkgd,bskd->bkgqs", q, k).float() * scale
+    mask = _tile_mask(qpos, kpos, causal, window, kv_len)
     s = torch.where(mask, s, NEG_INF)
     m = s.amax(-1)                                           # (B,KV,G,qc)
     p = torch.exp(s - m[..., None])
@@ -131,6 +138,117 @@ def flash_tiles(nq: int, nk: int, causal: bool,
     return pairs
 
 
+class _FlashCfg(NamedTuple):
+    causal: bool
+    window: int | None
+    q_chunk: int
+    kv_chunk: int
+    sk0: int            # unpadded kv length (padding mask)
+
+
+def _flash_fwd(cfgt: _FlashCfg, q, k, v, want_lse: bool):
+    """The tile loop over padded q (B, Sq, H, hd), k, v (B, Sk, KV, hd)
+    -> (out in q's dtype, each row's log-sum-exp (nq, B, KV, G, qc) in
+    float32, or ``None`` without ``want_lse``)."""
+    b, sq, h, hd = q.shape
+    kv_h = k.shape[2]
+    g = h // kv_h
+    qc, kc = cfgt.q_chunk, cfgt.kv_chunk
+    nq, nk = sq // qc, k.shape[1] // kc
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+    qb = q.reshape(b, nq, qc, kv_h, g, hd)
+    m = torch.full((nq, b, kv_h, g, qc), NEG_INF, device=dev)
+    l = torch.zeros((nq, b, kv_h, g, qc), device=dev)
+    acc = torch.zeros((nq, b, kv_h, g, qc, hd), device=dev)
+    qrange = torch.arange(qc, device=dev)
+    krange = torch.arange(kc, device=dev)
+    for qi, ki, valid in flash_tiles(nq, nk, cfgt.causal, cfgt.window):
+        kt = k[:, ki * kc:(ki + 1) * kc]
+        vt = v[:, ki * kc:(ki + 1) * kc]
+        bm, bl, bpv = _block_attend(qb[:, qi], kt, vt, qi * qc + qrange,
+                                    ki * kc + krange, scale, cfgt.causal,
+                                    cfgt.window, cfgt.sk0)
+        if not valid:
+            bm = torch.full_like(bm, NEG_INF)
+        m_new = torch.maximum(m[qi], bm)
+        alpha = torch.exp(m[qi] - m_new)
+        beta = torch.exp(bm - m_new)
+        l[qi] = l[qi] * alpha + bl * beta
+        acc[qi] = acc[qi] * alpha[..., None] + bpv.float() * beta[..., None]
+        m[qi] = m_new
+    out = acc / torch.clamp(l, min=1e-37)[..., None]
+    # (nq, B, KV, G, qc, hd) -> (B, Sq, H, hd)
+    out = out.permute(1, 0, 4, 2, 3, 5).reshape(b, sq, h, hd).to(q.dtype)
+    # a fully masked row (l == 0) keeps a finite log-sum-exp
+    lse = m + torch.log(torch.clamp(l, min=1e-37)) if want_lse else None
+    return out, lse
+
+
+def _flash_bwd(cfgt: _FlashCfg, q, k, v, out, lse, dout):
+    """The reference's ``_flash_call_bwd``, tile for tile: ``p`` from
+    each tile's recomputed scores and the saved ``lse`` under the tile
+    mask, ``dv += pᵀ·dout``, ``ds = p·(dp − delta)·scale``; dq, dk, dv
+    accumulated in float32 and cast to the inputs' dtypes.  The band's
+    placeholder tile (``valid`` 0) has ``p`` zero and is skipped."""
+    b, sq, h, hd = q.shape
+    kv_h = k.shape[2]
+    g = h // kv_h
+    qc, kc = cfgt.q_chunk, cfgt.kv_chunk
+    nq, nk = sq // qc, k.shape[1] // kc
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+    qb = q.reshape(b, nq, qc, kv_h, g, hd)
+    dob = dout.float().reshape(b, nq, qc, kv_h, g, hd)
+    ob = out.float().reshape(b, nq, qc, kv_h, g, hd)
+    delta = torch.einsum("bnqkgd,bnqkgd->bnkgq", dob, ob)
+    dq = torch.zeros((b, nq, qc, kv_h, g, hd), device=dev)
+    dk = torch.zeros(k.shape, device=dev)
+    dv = torch.zeros(v.shape, device=dev)
+    qrange = torch.arange(qc, device=dev)
+    krange = torch.arange(kc, device=dev)
+    for qi, ki, valid in flash_tiles(nq, nk, cfgt.causal, cfgt.window):
+        if not valid:
+            continue
+        qt, dot, dlt = qb[:, qi], dob[:, qi], delta[:, qi]
+        kt = k[:, ki * kc:(ki + 1) * kc]
+        vt = v[:, ki * kc:(ki + 1) * kc]
+        s = torch.einsum("bqkgd,bskd->bkgqs", qt, kt).float() * scale
+        mask = _tile_mask(qi * qc + qrange, ki * kc + krange, cfgt.causal,
+                          cfgt.window, cfgt.sk0)
+        p = torch.where(mask, torch.exp(s - lse[qi][..., None]), 0.0)
+        # dv += pᵀ dout; dp = dout vᵀ; ds = p (dp − delta)
+        dv[:, ki * kc:(ki + 1) * kc] += torch.einsum(
+            "bkgqs,bqkgd->bskd", p, dot)
+        dp = torch.einsum("bqkgd,bskd->bkgqs", dot, vt.float())
+        ds = p * (dp - dlt[..., None]) * scale
+        dq[:, qi] += torch.einsum("bkgqs,bskd->bqkgd", ds, kt.float())
+        dk[:, ki * kc:(ki + 1) * kc] += torch.einsum(
+            "bkgqs,bqkgd->bskd", ds, qt.float())
+    return (dq.reshape(b, sq, h, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The tile loop with the reference's custom VJP: the running max,
+    sum and accumulator are written in place inside ``forward``, where
+    autograd does not see them, and only (q, k, v, out, lse) are
+    saved."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cfgt: _FlashCfg):
+        out, lse = _flash_fwd(cfgt, q, k, v, want_lse=True)
+        ctx.cfgt = cfgt
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*_flash_bwd(ctx.cfgt, q, k, v, out, lse, dout), None)
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -145,11 +263,11 @@ def flash_attention(
 
     Query head ``h`` attends with KV head ``h // (H // KV)``.  A sliding
     window needs ``window <= kv_chunk == q_chunk`` (``ValueError``
-    otherwise, where the reference asserts)."""
-    b, sq0, h, hd = q.shape
-    sk0, kv_h = k.shape[1], k.shape[2]
-    g = h // kv_h
-    scale = 1.0 / math.sqrt(hd)
+    otherwise, where the reference asserts).  Where autograd wants a
+    gradient the loop runs inside ``_FlashAttention`` (memory O(S·chunk)
+    in both passes); otherwise (serving, under ``no_grad``) it keeps no
+    log-sum-exp."""
+    sq0, sk0 = q.shape[1], k.shape[1]
     q_chunk = min(q_chunk, sq0)
     kv_chunk = min(kv_chunk, sk0)
     if window is not None and not (window <= kv_chunk and
@@ -166,33 +284,12 @@ def flash_attention(
     if sk != sk0:
         k = F.pad(k, (0, 0, 0, 0, 0, sk - sk0))
         v = F.pad(v, (0, 0, 0, 0, 0, sk - sk0))
-    nq, nk = sq // q_chunk, sk // kv_chunk
-
-    dev = q.device
-    qb = q.reshape(b, nq, q_chunk, kv_h, g, hd)
-    m = torch.full((nq, b, kv_h, g, q_chunk), NEG_INF, device=dev)
-    l = torch.zeros((nq, b, kv_h, g, q_chunk), device=dev)
-    acc = torch.zeros((nq, b, kv_h, g, q_chunk, hd), device=dev)
-    qrange = torch.arange(q_chunk, device=dev)
-    krange = torch.arange(kv_chunk, device=dev)
-    for qi, ki, valid in flash_tiles(nq, nk, causal, window):
-        kt = k[:, ki * kv_chunk:(ki + 1) * kv_chunk]
-        vt = v[:, ki * kv_chunk:(ki + 1) * kv_chunk]
-        bm, bl, bpv = _block_attend(qb[:, qi], kt, vt, qi * q_chunk + qrange,
-                                    ki * kv_chunk + krange, scale, causal,
-                                    window, sk0)
-        if not valid:
-            bm = torch.full_like(bm, NEG_INF)
-        m_new = torch.maximum(m[qi], bm)
-        alpha = torch.exp(m[qi] - m_new)
-        beta = torch.exp(bm - m_new)
-        l[qi] = l[qi] * alpha + bl * beta
-        acc[qi] = acc[qi] * alpha[..., None] + bpv.float() * beta[..., None]
-        m[qi] = m_new
-    out = acc / torch.clamp(l, min=1e-37)[..., None]
-    # (nq, B, KV, G, qc, hd) -> (B, Sq, H, hd)
-    out = out.permute(1, 0, 4, 2, 3, 5).reshape(b, sq, h, hd)
-    return out.to(q.dtype)[:, :sq0]
+    cfgt = _FlashCfg(causal, window, q_chunk, kv_chunk, sk0)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        out = _FlashAttention.apply(q, k, v, cfgt)
+    else:
+        out, _ = _flash_fwd(cfgt, q, k, v, want_lse=False)
+    return out[:, :sq0]
 
 
 # ---------------------------------------------------------------------------

@@ -25,14 +25,30 @@ through the shared embedding, or the frontend stub's ``enc_embeds``),
 then ``enc_final_norm``; each decoder layer adds a cross-attention
 block (``norm_cross``, ``cross``) between its self-attention and its
 FFN, which attends over the whole encoder output with no RoPE.
-``loss_fn`` waits for the training slice.
+
+Training: ``loss_fn`` is the reference's chunked next-token
+cross-entropy over ``_hidden``, the undecorated body of the ``no_grad``
+serving entry point ``forward_hidden``.  It computes on a
+differentiable cast of the masters (``compute_params``: the
+reference's ``cast_params``, whose gradient reaches the float32
+masters), substituted for the parameters by
+``torch.func.functional_call`` (``in_view``), and recomputes each
+scanned group of layers in the backward as ``cfg.remat`` says (the
+reference's ``_remat_wrap``).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.backend import resolve_device
@@ -226,15 +242,22 @@ class Model(nn.Module):
     def device(self) -> torch.device:
         return self.embed.table.device
 
+    def forward(self, fn, *args):
+        """``fn(*args)``: the call through which ``functional_call`` runs
+        this file's functions (``in_view``) on substituted parameters.
+        The entry points are the module-level functions, not this."""
+        return fn(*args)
+
 
 def cast_params(model: Model, dtype) -> Model:
-    """Compute-dtype view of the (float32 master) parameters: ``model``
-    itself where every floating parameter already has ``dtype``, else a
-    new ``Model`` holding cast copies.  A server casts once when it
-    loads the model and keeps that copy (the reference casts inside
-    every jitted call, which XLA sees once; done eagerly per decode step
-    at full width it would read and allocate the whole model a
-    token)."""
+    """Compute-dtype copy of the (float32 master) parameters for serving:
+    ``model`` itself where every floating parameter already has
+    ``dtype``, else a new ``Model`` holding cast copies, detached from
+    the masters (training casts through ``compute_params`` instead).  A
+    server casts once when it loads the model and keeps that copy (the
+    reference casts inside every jitted call, which XLA sees once; done
+    eagerly per decode step at full width it would read and allocate
+    the whole model a token)."""
     dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
     if all(p.dtype == dt for p in model.parameters() if p.is_floating_point()):
         return model
@@ -243,6 +266,64 @@ def cast_params(model: Model, dtype) -> Model:
         {k: v.to(dt) if v.is_floating_point() else v
          for k, v in model.state_dict().items()}, assign=True)
     return out
+
+
+def compute_params(model: Model, dtype) -> dict:
+    """The reference's ``cast_params`` for training: ``{name: p.to(dtype)}``
+    for each floating parameter of another dtype, whose gradient flows
+    back to the master.  Integer and already-``dtype`` leaves are left
+    out and read as the parameters themselves."""
+    dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    return {n: p.to(dt) for n, p in model.named_parameters()
+            if p.is_floating_point() and p.dtype != dt}
+
+
+def in_view(model: Model, params: dict, fn, *args):
+    """``fn(*args)`` while each parameter of ``model`` named in ``params``
+    reads as the tensor given there (``torch.func.functional_call``)."""
+    if not params:
+        return fn(*args)
+    return functional_call(model, params, (fn, *args))
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep the outputs of matrix products without
+    batch dimensions (``x @ W``; the reference's
+    ``dots_with_no_batch_dims_saveable``), recompute the rest."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(fn, model: Model, modules, mode: str):
+    """``fn`` recomputed in the backward as ``mode`` (``cfg.remat``)
+    says while autograd records: ``"full"`` saves only the inputs,
+    ``"dots"`` also the matrix products' outputs, ``"none"`` everything.
+    The parameter tensors that ``fn`` reads from ``modules`` ((name
+    prefix, submodule of ``model``) pairs; under ``in_view``, the casts)
+    go to the checkpoint as inputs and are substituted again for the
+    recompute, so it reads what the forward read."""
+    if mode == "none" or not torch.is_grad_enabled():
+        return fn
+    if mode not in ("full", "dots"):
+        raise ValueError(f"remat must be full, dots or none, got {mode!r}")
+    context_fn = (functools.partial(create_selective_checkpoint_contexts,
+                                    _save_products)
+                  if mode == "dots" else None)
+    kw = {"context_fn": context_fn} if context_fn else {}
+
+    def rerun(names, n_args, *args):
+        return in_view(model, dict(zip(names, args[n_args:])), fn,
+                       *args[:n_args])
+
+    def call(*args):
+        named = [(f"{pre}.{n}", p) for pre, mod in modules
+                 for n, p in mod.named_parameters()]
+        return checkpoint(rerun, [n for n, _ in named], len(args), *args,
+                          *(p for _, p in named), use_reentrant=False,
+                          preserve_rng_state=False, **kw)
+
+    return call
 
 
 # ---------------------------------------------------------------------------
@@ -396,10 +477,81 @@ def encode(model: Model, enc_tokens=None, enc_embeds=None,
     enc = encoder_config(model.cfg)
     x = embed_inputs(model, enc_tokens, enc_embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    for layer in model.encoder:
-        x, _, _ = attn_sublayer(layer, enc, x, positions, q_chunk,
-                                causal=False)
+    x, _ = run_stack(model, enc, "encoder", x, positions, q_chunk,
+                     causal=False)
     return model.enc_final_norm(x)
+
+
+def _layer_fwd(layer, cfg: ModelConfig, x, positions, q_chunk: int,
+               causal: bool, enc_out):
+    """One layer over a whole sequence -> (x, its MoE aux or None)."""
+    if isinstance(layer, RecurrentLayer):
+        return recurrent_sublayer(layer, x)[0], None
+    x, _, aux = attn_sublayer(layer, cfg, x, positions, q_chunk, causal,
+                              enc_out)
+    return x, aux
+
+
+def run_stack(model: Model, cfg: ModelConfig, stack: str, x, positions,
+              q_chunk: int, *, causal: bool = True, enc_out=None):
+    """The reference's ``_run_stack`` over ``model``'s ``stack``
+    (``"layers"`` or ``"encoder"``, one module a layer, in order) ->
+    (x, aux): ``layer_plan``'s groups of ``period`` layers, each followed
+    by zamba2's shared block and recomputed in the backward as
+    ``cfg.remat`` says (``remat``), then the tail layers, never
+    recomputed.  aux is the MoE layers' sum (``None`` without MoE)."""
+    layers = getattr(model, stack)
+    shared = model.shared_attn if stack == "layers" else None
+    period, n_groups, _ = layer_plan(cfg, len(layers))
+    auxs = []
+
+    def group(g):
+        idx = range(g * period, (g + 1) * period)
+
+        def run(x, enc_out):
+            aux = None
+            for i in idx:
+                x, a = _layer_fwd(layers[i], cfg, x, positions, q_chunk,
+                                  causal, enc_out)
+                if a is not None:
+                    aux = a if aux is None else aux + a
+            if shared is not None:
+                x, _ = _layer_fwd(shared, cfg, x, positions, q_chunk, causal,
+                                  None)
+            return x, aux
+
+        modules = [(f"{stack}.{i}", layers[i]) for i in idx]
+        if shared is not None:
+            modules.append(("shared_attn", shared))
+        return remat(run, model, modules, cfg.remat)
+
+    for g in range(n_groups):
+        x, aux = group(g)(x, enc_out)
+        if aux is not None:
+            auxs.append(aux)
+    for layer in layers[n_groups * period:]:
+        x, aux = _layer_fwd(layer, cfg, x, positions, q_chunk, causal,
+                            enc_out)
+        if aux is not None:
+            auxs.append(aux)
+    return x, functools.reduce(torch.add, auxs) if auxs else None
+
+
+def _hidden(model: Model, tokens, embeds, enc_tokens, enc_embeds,
+            q_chunk: int):
+    """The forward up to (and including) the final norm -> (x, aux), on
+    parameters already in the activation dtype (a ``cast_params`` copy,
+    or the masters under ``in_view`` of ``compute_params``)."""
+    cfg = model.cfg
+    enc_out = (encode(model, enc_tokens, enc_embeds, q_chunk)
+               if cfg.is_enc_dec else None)
+    x = embed_inputs(model, tokens, embeds)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    x, aux = run_stack(model, cfg, "layers", x, positions, q_chunk,
+                       enc_out=enc_out)
+    if aux is None:
+        aux = torch.zeros((), device=x.device)
+    return model.final_norm(x), aux
 
 
 @torch.no_grad()
@@ -408,26 +560,8 @@ def forward_hidden(model: Model, tokens=None, *, embeds=None,
     """Forward pass up to (and including) the final norm -> (x, aux),
     aux the sum of the layers' MoE auxiliaries (0 without MoE).  An
     encoder–decoder takes ``enc_tokens`` or ``enc_embeds``."""
-    cfg = model.cfg
-    model = cast_params(model, cfg.activation_dtype)
-    enc_out = (encode(model, enc_tokens, enc_embeds, q_chunk)
-               if cfg.is_enc_dec else None)
-    x = embed_inputs(model, tokens, embeds)
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    aux = torch.zeros((), device=x.device)
-    shared = shared_groups(cfg)
-    for i, layer in enumerate(model.layers):
-        if isinstance(layer, RecurrentLayer):
-            x, _ = recurrent_sublayer(layer, x)
-        else:
-            x, _, layer_aux = attn_sublayer(layer, cfg, x, positions,
-                                            q_chunk, enc_out=enc_out)
-            if layer_aux is not None:
-                aux = aux + layer_aux
-        if i in shared:
-            x, _, _ = attn_sublayer(model.shared_attn, cfg, x, positions,
-                                    q_chunk)
-    return model.final_norm(x), aux
+    return _hidden(cast_params(model, model.cfg.activation_dtype), tokens,
+                   embeds, enc_tokens, enc_embeds, q_chunk)
 
 
 @torch.no_grad()
@@ -439,7 +573,58 @@ def forward(model: Model, tokens=None, *, embeds=None, enc_tokens=None,
     the MoE load-balancing loss of the reference, summed over the layers
     (0 without MoE)."""
     model = cast_params(model, model.cfg.activation_dtype)
-    x, aux = forward_hidden(model, tokens, embeds=embeds,
-                            enc_tokens=enc_tokens, enc_embeds=enc_embeds,
-                            q_chunk=q_chunk)
+    x, aux = _hidden(model, tokens, embeds, enc_tokens, enc_embeds, q_chunk)
     return logits_of(model, x), aux
+
+
+# ---------------------------------------------------------------------------
+# training loss
+# ---------------------------------------------------------------------------
+
+
+def _chunk_nll(xc, lc, w, tied: bool, cap):
+    """One sequence chunk's summed next-token NLL over the labels ``>= 0``
+    and their count.  ``torch.gather`` refuses the label -1 that
+    ``jnp.take_along_axis`` reads, so it gathers at ``max(label, 0)``;
+    the mask zeroes those terms."""
+    logits = softcap((xc @ (w.T if tied else w)).float(), cap)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, lc.clamp(min=0)[..., None].long())[..., 0]
+    mask = (lc >= 0).float()
+    return ((lse - gold) * mask).sum(), mask.sum()
+
+
+def loss_fn(model: Model, batch: dict, q_chunk: int = 1024,
+            ce_chunk: int = 256):
+    """Next-token cross-entropy (+ 0.01 × the MoE aux) -> (loss, metrics
+    ``loss`` and ``aux``, detached), differentiable with respect to the
+    masters: the reference's ``loss_fn``.  ``batch`` holds ``labels``
+    (B, S) (-1: no loss) and ``tokens`` or ``embeds``, and for an
+    encoder–decoder ``enc_tokens`` or ``enc_embeds``.  The float32
+    (soft-capped) logits are made ``ce_chunk`` positions at a time (one
+    chunk where ``ce_chunk`` does not divide S), each chunk recomputed
+    in the backward, so the (B, S, V) logits never exist at once."""
+    cfg = model.cfg
+    tied = model.lm_head is None
+
+    def body():
+        x, aux = _hidden(model, batch.get("tokens"), batch.get("embeds"),
+                         batch.get("enc_tokens"), batch.get("enc_embeds"),
+                         q_chunk)
+        return x, aux, model.embed.table if tied else model.lm_head["w"]
+
+    x, aux, w = in_view(model, compute_params(model, cfg.activation_dtype),
+                        body)
+    labels = batch["labels"]
+    s = x.shape[1]
+    cc = min(ce_chunk, s)
+    if s % cc:
+        cc = s
+    tot = cnt = 0
+    for c0 in range(0, s, cc):
+        t, c = checkpoint(_chunk_nll, x[:, c0:c0 + cc],
+                          labels[:, c0:c0 + cc], w, tied, cfg.logit_softcap,
+                          use_reentrant=False, preserve_rng_state=False)
+        tot, cnt = tot + t, cnt + c
+    loss = tot / torch.clamp(cnt, min=1.0)
+    return loss + 0.01 * aux, {"loss": loss.detach(), "aux": aux.detach()}

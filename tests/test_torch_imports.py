@@ -81,6 +81,11 @@ def test_no_jax_or_reference_import_in_port_sources():
         "__init__", "layers", "attention", "model", "decode",
         "convert", "moe")} | {PORT / "launch" / "__init__.py",
                        PORT / "launch" / "serve.py"} <= set(files)
+    assert {PORT / path for path in (
+        "optim/__init__.py", "optim/adamw.py", "data/synthetic.py",
+        "train/__init__.py", "train/steps.py", "train/loop.py",
+        "checkpoint/__init__.py", "checkpoint/manager.py",
+        "launch/train.py")} <= set(files)
     offenders = [(f.relative_to(REPO).as_posix(), root) for f in files
                  for root in _imported_roots(f)
                  if root in ("jax", "jaxlib", "repro")]
@@ -156,6 +161,22 @@ def test_default_device_is_the_gpu_and_raises_without_one():
                  lambda: decode.init_cache(cfg, 1, 8)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+    # the training path: its launcher, the trainer and the train step
+    from repro_torch.launch import train as lm_train
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop, steps
+
+    targv = ["--reduced", "--steps", "1", "--seq-len", "8",
+             "--global-batch", "1"]
+    tcfg = loop.TrainerConfig(steps=1, seq_len=8, global_batch=1)
+    for call in (lambda: lm_train.main(targv),
+                 lambda: loop.Trainer(cfg, tcfg),
+                 lambda: steps.build_train_step(cfg, adamw.AdamWConfig())):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    lm_train.main(targv + ["--device", "cpu"])
+    trainer = loop.Trainer(cfg, tcfg, device="cpu")
+    assert trainer.init_state()["params"].device.type == "cpu"
     lm_serve.main(argv + ["--device", "cpu"])
     lm = model.init_params(cfg, torch.Generator(), device="cpu")
     assert lm.device.type == "cpu"
