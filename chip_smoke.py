@@ -171,7 +171,30 @@ Phases, each of which makes the script exit non-zero when it fails:
    checkpoint every 3 steps and a failure injected at step 4, restored
    and finished: its final state against an uninterrupted run's
    (equal bit for bit, or the phase fails), and the card's checkpoint
-   restored onto the CPU.
+   restored onto the CPU;
+16. data-parallel training with the int8 compressed all-reduce
+   (``repro_torch.optim.compression``, ``repro_torch.launch.mesh``,
+   ``build_compressed_train_step``; the compression is plain PyTorch
+   and reaches no Pallas kernel either), after phase 15 has freed its
+   model: (a) four spawned gloo ranks on the one card, a (4, 1)
+   ("data", "model") mesh, reduced gemma-2b with the same weights on
+   every rank, batch 8 × 32, ``q_chunk`` 16: 2 compressed steps on the
+   card, each from the CPU's state before it, against the same ranks'
+   CPU run (loss within 1e-5,
+   ``grad_norm`` within 1e-4 relative, parameters within 1e-5 of each
+   leaf's max but for elements where a rounding flipped, fewer than
+   1e-3 of them), and the reference's convergence test: 5 steps on one
+   batch, compressed and plain, the compressed loss below 6.3 and
+   within 0.35 of the plain one; (b) gemma-2b at full width and depth
+   as the one rank of an NCCL group in this process (phase 15's
+   launcher sizes, plus the float32 error): a warm-up and 3 timed
+   steps, every loss finite; step ms split into forward+backward, the
+   compression with its all-reduce, and AdamW (CUDA events), tokens/s,
+   peak memory, the bytes a rank hands the all-reduce, launches and
+   the idle share of one profiled step, beside phase 15's plain step
+   and the bound (``train_bounds`` plus the compression's bytes); (c)
+   ``launch.analytic``'s flops and bytes beside this script's bounds
+   at the same shapes.
 
 The third-to-last line of standard output is the card's ``nvidia-smi``
 name and power limit, the second-to-last ``{"kernels": [...]}``, and
@@ -3146,6 +3169,408 @@ def run_lm_train(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: data-parallel training with the int8 compressed all-reduce
+# (optim.compression, launch.mesh, build_compressed_train_step)
+# ---------------------------------------------------------------------------
+
+#: (a): the gloo ranks on the one card, batch, tokens, flash chunk
+COMP_RANKS, COMP_BATCH, COMP_SEQ, COMP_Q_CHUNK = 4, 8, 32, 16
+#: (a): compressed steps held card against CPU; steps of the
+#: reference's convergence protocol (compressed against plain)
+COMP_CHECK_STEPS, COMP_TRACK_STEPS = 2, 5
+#: Seconds the four ranks may take, start-up included.
+COMP_TIMEOUT_S = 300
+#: (b): timed steps after a warm-up
+COMP_REPS = 3
+#: Bytes the compression moves a parameter, counted from
+#: ``optim.compression.psum_compressed``: g and err read (4 + 4), err,
+#: the int8 q and the int32 payload written (4 + 1 + 4), the payload
+#: read by the reduction (4), the float32 mean written (4).  The code
+#: reads g and err once more for a leaf's scale (33 bytes moved).
+COMP_BYTES_PER_PARAM = 25
+
+
+def comp_batch() -> dict:
+    """The reference's convergence-test batch (``tests/test_distributed.py``):
+    8 rows of 32 tokens from ``default_rng(0)``, the labels rolled by one."""
+    rng = np.random.default_rng(0)
+    tok = rng.integers(0, 512, (COMP_BATCH, COMP_SEQ)).astype(np.int32)
+    return {"tokens": tok, "labels": np.roll(tok, -1, 1)}
+
+
+def comp_opt():
+    """The reference's convergence test's optimizer."""
+    from repro_torch.optim import adamw
+
+    return adamw.AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=20)
+
+
+def comp_init(cfg) -> dict:
+    """Reduced gemma-2b's state before the first step: weights drawn on
+    the CPU from seed 0 (the same on every rank), zero moments and
+    error."""
+    from repro_torch.models import model as MDL
+
+    model = MDL.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    zeros = {n: torch.zeros_like(p) for n, p in params.items()}
+    return {"params": params, "m": zeros, "v": zeros, "err": zeros,
+            "step": 0}
+
+
+def comp_run(cfg, mesh, device: str, state: dict, steps: int) -> tuple:
+    """``steps`` compressed steps on ``comp_batch`` on ``device`` from
+    ``state`` (``comp_init``'s form) -> (the state after each step, on
+    the CPU; the metrics of each step)."""
+    from repro_torch.models import model as MDL
+    from repro_torch.train.steps import build_compressed_train_step
+
+    model = MDL.Model(cfg, device="meta")
+    model.load_state_dict({n: t.to(device, copy=True)
+                           for n, t in state["params"].items()},
+                          assign=True)
+    opt = {k: ({n: t.to(device, copy=True) for n, t in state[k].items()}
+               if k != "step" else state[k]) for k in state if k != "params"}
+    step = build_compressed_train_step(cfg, comp_opt(), mesh, "data",
+                                       q_chunk=COMP_Q_CHUNK, device=device)
+    after, metrics = [], []
+    for _ in range(steps):
+        model, opt, m = step(model, opt, comp_batch())
+        after.append({
+            "params": {n: p.detach().cpu().clone()
+                       for n, p in model.named_parameters()},
+            **{k: ({n: t.cpu().clone() for n, t in opt[k].items()}
+                   if k != "step" else opt[k]) for k in opt}})
+        metrics.append({k: float(v) for k, v in m.items()})
+    return after, metrics
+
+
+def comp_rank(rank: int, tmp: str) -> None:
+    """One of phase 16 (a)'s gloo ranks (spawned): a (4, 1) ("data",
+    "model") mesh; ``COMP_CHECK_STEPS`` compressed steps on the CPU, and
+    each of them on the card from the CPU's state before it; the
+    convergence protocol's compressed run on the card (rank 0 also its
+    plain run); writes its results under ``tmp``."""
+    from repro_torch.configs.registry import get_reduced
+    from repro_torch.core import distributed as D
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as MDL
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import build_train_step
+
+    torch.set_num_threads(1)
+    if DEVICE == "cuda":
+        torch.cuda.set_device(0)
+    cfg = get_reduced(TRAIN_ARCH)
+    init = comp_init(cfg)
+    out = {}
+    with D.file_group(f"{tmp}/gloo", rank, COMP_RANKS, "gloo"):
+        mesh = make_host_mesh(device=DEVICE)
+        out["mesh"] = [list(mesh.mesh.shape), list(mesh.mesh_dim_names)]
+        states, metrics = comp_run(cfg, mesh, "cpu", init, COMP_CHECK_STEPS)
+        out["cpu"] = ([x["params"] for x in states], metrics)
+        card = [comp_run(cfg, mesh, DEVICE, before, 1)
+                for before in [init] + states[:-1]]
+        out["card"] = ([x[0][0]["params"] for x in card],
+                       [x[1][0] for x in card])
+        out["tracked"] = [m["loss"] for m in comp_run(
+            cfg, mesh, DEVICE, init, COMP_TRACK_STEPS)[1]]
+    if rank == 0:
+        model = MDL.Model(cfg, device="meta")
+        model.load_state_dict({n: t.to(DEVICE, copy=True)
+                               for n, t in init["params"].items()},
+                              assign=True)
+        opt = adamw.init_state(comp_opt(), dict(model.named_parameters()))
+        step = build_train_step(cfg, comp_opt(), q_chunk=COMP_Q_CHUNK,
+                                device=DEVICE)
+        out["plain"] = []
+        for _ in range(COMP_TRACK_STEPS):
+            model, opt, m = step(model, opt, comp_batch())
+            out["plain"].append(float(m["loss"]))
+    torch.save(out, f"{tmp}/rank{rank}.pt")
+
+
+def comp_card_against_cpu(ranks: list) -> dict:
+    """(a) each rank's card steps against its CPU steps, each card step
+    from the CPU's state before it (a rounding that flips in one step
+    changes an element by up to a learning rate, and the next step's
+    gradients with it, so chained runs part), under
+    ``tests/test_torch_compression.py``'s tolerances: the loss within
+    1e-5, ``grad_norm`` within 1e-4 relative, every parameter element
+    within 1e-5 of its leaf's max |CPU| but for elements where a
+    rounding in ``quantize`` flipped (fewer than 1e-3 of all); every
+    rank's card parameters equal rank 0's bit for bit."""
+    flips = []
+    for r, rec in enumerate(ranks):
+        (p_cpu, m_cpu), (p_card, m_card) = rec["cpu"], rec["card"]
+        for s in range(COMP_CHECK_STEPS):
+            if (abs(m_card[s]["loss"] - m_cpu[s]["loss"]) >= 1e-5
+                    or abs(m_card[s]["grad_norm"] - m_cpu[s]["grad_norm"])
+                    > 1e-4 * m_cpu[s]["grad_norm"]):
+                raise AssertionError(
+                    f"lm compressed (a) rank {r} step {s + 1}: card "
+                    f"{m_card[s]} != CPU {m_cpu[s]}")
+            off = n = 0
+            for name, want in p_cpu[s].items():
+                got = p_card[s][name]
+                if r and not torch.equal(got, ranks[0]["card"][0][s][name]):
+                    raise AssertionError(
+                        f"lm compressed (a) rank {r} step {s + 1}: {name} "
+                        "differs from rank 0's")
+                tol = 1e-5 * max(float(want.abs().max()), 1e-30)
+                off += int(((got - want).abs() > tol).sum())
+                n += want.numel()
+            if off >= 1e-3 * n:
+                raise AssertionError(
+                    f"lm compressed (a) rank {r} step {s + 1}: {off} of "
+                    f"{n} elements off (bound 1e-3 of them)")
+            flips.append(off)
+    return dict(flipped=flips, elements=n,
+                losses_card=[m["loss"] for m in ranks[0]["card"][1]],
+                losses_cpu=[m["loss"] for m in ranks[0]["cpu"][1]],
+                grad_norm_card=[m["grad_norm"] for m in ranks[0]["card"][1]])
+
+
+def run_comp_ranks() -> dict:
+    """(a) four spawned gloo ranks on the one card, checked."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(comp_rank, args=(tmp,), nprocs=COMP_RANKS,
+                                 join=False, start_method="spawn")
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() - t0 > COMP_TIMEOUT_S:
+                    raise TimeoutError(f"compressed gloo ranks still "
+                                       f"running after {COMP_TIMEOUT_S} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+        ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
+                 for r in range(COMP_RANKS)]
+    out = comp_card_against_cpu(ranks)
+    comp, plain = ranks[0]["tracked"], ranks[0]["plain"]
+    if any(rec["tracked"] != comp for rec in ranks):
+        raise AssertionError("lm compressed (a): the ranks' losses differ")
+    if not (comp[-1] < 6.3 and abs(plain[-1] - comp[-1]) < 0.35):
+        raise AssertionError(
+            f"lm compressed (a): compressed {comp} against plain {plain} "
+            "(the reference's bounds: < 6.3, within 0.35)")
+    out.update(mesh=ranks[0]["mesh"], tracked=comp, plain=plain,
+               spawn_s=time.perf_counter() - t0)
+    return out
+
+
+def comp_full_width(card: str) -> dict:
+    """(b) gemma-2b at full width and depth as the one rank of an NCCL
+    group in this process: a (1, 1) mesh, the launcher's sizes (batch
+    8 × 128, ``q_chunk`` 128, float32 masters, AdamW state and error,
+    bfloat16 activations, ``remat="full"``, the ``Trainer``'s
+    optimizer).  A warm-up and ``COMP_REPS`` timed steps, every loss
+    finite; the step split into forward+backward, the compression with
+    its all-reduce, and AdamW (CUDA events); peak memory; one profiled
+    step."""
+    import tempfile
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import distributed as D
+    from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.launch.mesh import axis_group, batch_axes, make_host_mesh
+    from repro_torch.models import convert
+    from repro_torch.models import model as MDL
+    from repro_torch.optim import adamw
+    from repro_torch.optim.compression import init_error, psum_compressed
+    from repro_torch.train.loop import TrainerConfig
+    from repro_torch.train.steps import build_compressed_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    tcfg = TrainerConfig(steps=TRAIN_STEPS)   # the launcher's sizes
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=10,
+                                total_steps=tcfg.steps)
+    batch = {k: torch.as_tensor(v, device=DEVICE) for k, v in TokenPipeline(
+        cfg.vocab_size, tcfg.seq_len, tcfg.global_batch, 0).batch(0).items()}
+    tokens = tcfg.global_batch * tcfg.seq_len
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.set_device(0)
+        with D.file_group(f"{tmp}/nccl", 0, 1, "nccl"):
+            mesh = make_host_mesh(device=DEVICE)
+            axes = batch_axes(mesh)
+            model = MDL.init_params(
+                cfg, torch.Generator(DEVICE).manual_seed(0), DEVICE)
+            params = dict(model.named_parameters())
+            opt = dict(adamw.init_state(opt_cfg, params),
+                       err=init_error(params))
+            step_fn = build_compressed_train_step(
+                cfg, opt_cfg, mesh, axes, q_chunk=tcfg.q_chunk,
+                device=DEVICE)
+            losses = []
+
+            def step():
+                nonlocal model, opt
+                model, opt, m = step_fn(model, opt, batch)
+                losses.append(m["loss"])
+
+            step_ms = cuda_ms(step, COMP_REPS)
+            group = axis_group(mesh, axes)[0]
+            names = list(params)
+            leaves = convert.reference_leaves(cfg, names)
+            events = [[torch.cuda.Event(enable_timing=True)
+                       for _ in range(4)] for _ in range(COMP_REPS)]
+            for e0, e1, e2, e3 in events:
+                e0.record()
+                loss, _ = MDL.loss_fn(model, batch, q_chunk=tcfg.q_chunk)
+                grads = dict(zip(names, torch.autograd.grad(
+                    loss, list(params.values()))))
+                e1.record()
+                grads, _ = psum_compressed(grads, opt["err"], group, leaves)
+                e2.record()
+                _, inner, _ = adamw.apply_updates(
+                    opt_cfg, params, grads,
+                    {k: opt[k] for k in ("m", "v", "step")})
+                opt = {**inner, "err": opt["err"]}
+                e3.record()
+                del loss, grads
+            sync()
+            peak = torch.cuda.max_memory_allocated()
+            trace = profile_run(f"lm compressed step {tcfg.global_batch}x"
+                                f"{tcfg.seq_len}", step, card)
+            losses = [float(v) for v in losses]
+            if not all(np.isfinite(losses)):
+                raise AssertionError(f"lm compressed (b): non-finite "
+                                     f"losses {losses}")
+            bounds = train_bounds(model, tcfg.global_batch, tcfg.seq_len)
+            n = bounds["n"]
+            del model, opt, params, step_fn
+    torch.cuda.empty_cache()
+
+    def mean_ms(a, b):
+        return sum(e[a].elapsed_time(e[b]) for e in events) / COMP_REPS
+
+    comp_bytes = COMP_BYTES_PER_PARAM * n
+    comp_bound = comp_bytes / HBM_BYTES_PER_S * 1e3
+    return dict(
+        arch=cfg.name, batch=tcfg.global_batch, seq=tcfg.seq_len,
+        losses=losses, step_ms=step_ms, fwd_bwd_ms=mean_ms(0, 1),
+        comp_ms=mean_ms(1, 2), opt_ms=mean_ms(2, 3),
+        tokens_per_s=tokens * 1e3 / step_ms, peak_bytes=peak,
+        held_before_bytes=held, trace=trace,
+        launches_per_step=trace["device_events"], leaves=len(leaves),
+        wire_bytes_per_rank=4 * n + 4 * len(leaves) + 4 * 2,
+        float32_wire_bytes=4 * n, int8_wire_bytes=n,
+        comp_bytes=comp_bytes, comp_bound_ms=comp_bound,
+        **bounds, step_bound_with_comp_ms=bounds["step_bound_ms"]
+        + comp_bound)
+
+
+def analytic_rows() -> list:
+    """``launch.analytic``'s ``step_flops``/``step_hbm_bytes`` on one
+    chip beside this script's bounds at the same shapes, counted on
+    meta-device models (no device memory): gemma-2b's prefill and
+    decode (``lm_bounds``, the served bfloat16 model), its train step
+    (``train_bounds``, the float32 masters) and seamless-m4t-large-v2's
+    prefill and decode over ``LM_PROMPT`` frames (``encdec_bounds``)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import analytic
+    from repro_torch.models import model as MDL
+
+    def row(cfg, step, batch, seq, hand_ops, hand_bytes):
+        shape = ShapeSpec(step, seq, batch, step)
+        fl = analytic.step_flops(cfg, shape)
+        return dict(arch=cfg.name, step=step, batch=batch, seq=seq,
+                    analytic_flops=fl["flops"], model_flops=fl["model_flops"],
+                    analytic_bytes=analytic.step_hbm_bytes(
+                        cfg, shape, {"data": 1, "model": 1}),
+                    hand_ops=hand_ops, hand_bytes=hand_bytes)
+
+    rows = []
+    for arch in (LM_ARCH, ENCDEC_ARCH):
+        cfg = get_config(arch)
+        served = MDL.Model(cfg, device="meta").to(torch.bfloat16)
+        hand = (encdec_bounds(cfg, served, LM_PROMPT) if cfg.is_enc_dec
+                else lm_bounds(cfg, served))
+        rows.append(row(cfg, "prefill", LM_BATCH, LM_PROMPT,
+                        hand["prefill_ops"], None))
+        rows.append(row(cfg, "decode", LM_BATCH, LM_PROMPT, None,
+                        hand["read_bytes_per_token"]
+                        + hand["kv_bytes_per_token"]))
+    cfg = get_config(TRAIN_ARCH)
+    hand = train_bounds(MDL.Model(cfg, device="meta"), 8, 128)
+    rows.append(row(cfg, "train", 8, 128, hand["train_ops"],
+                    hand["opt_bytes"]))
+    return rows
+
+
+def run_lm_compressed(card: str, plain: dict | None = None) -> dict:
+    """(a) four gloo ranks on the one card (``run_comp_ranks``); (b)
+    gemma-2b at full width and depth as one NCCL rank
+    (``comp_full_width``), beside phase 15's plain step (``plain``) and
+    the bound: ``train_bounds`` plus the compression's bytes at the HBM
+    rate; (c) ``analytic_rows``.  Fails on any mismatch or non-finite
+    loss."""
+    t_phase = time.perf_counter()
+    out = {"ranks": run_comp_ranks()}
+    out["full"] = comp_full_width(card)
+    out["analytic"] = analytic_rows()
+    out["seconds"] = time.perf_counter() - t_phase
+    a, b = out["ranks"], out["full"]
+    log(f"lm compressed (a) reduced {TRAIN_ARCH}, four gloo ranks on one "
+        f"card, mesh {a['mesh']}, batch {COMP_BATCH} x {COMP_SEQ}, q_chunk "
+        f"{COMP_Q_CHUNK}: {COMP_CHECK_STEPS} compressed steps card against "
+        f"CPU (each from the CPU's state before it), losses "
+        f"{a['losses_card']} / {a['losses_cpu']}, elements off by a "
+        f"flipped rounding {a['flipped']} of {a['elements']} a rank "
+        f"and step (bound 1e-3 of them), every rank's parameters equal; "
+        f"the reference's convergence protocol on the card: compressed "
+        f"{[round(v, 4) for v in a['tracked']]}, plain "
+        f"{[round(v, 4) for v in a['plain']]} (bounds < 6.3, within 0.35); "
+        f"{a['spawn_s']:.1f} s with start-up ({card})")
+    log(f"lm compressed (b) {b['arch']} full width and depth ({b['n']} "
+        f"parameters, {b['leaves']} reference leaves), one NCCL rank, batch "
+        f"{b['batch']} x {b['seq']}: losses "
+        f"{[round(v, 4) for v in b['losses']]}, all finite; step "
+        f"{b['step_ms']:.3f} ms (CUDA events, mean of {COMP_REPS} after a "
+        f"warm-up): forward+backward {b['fwd_bwd_ms']:.3f} ms (bound "
+        f"{b['fwd_bwd_bound_ms']:.3f}), compression with its all-reduce "
+        f"{b['comp_ms']:.3f} ms (bound {b['comp_bound_ms']:.3f}: "
+        f"{b['comp_bytes']:.4g} bytes at {HBM_BYTES_PER_S:.4g} B/s), AdamW "
+        f"{b['opt_ms']:.3f} ms (bound {b['opt_bound_ms']:.3f}); step bound "
+        f"{b['step_bound_with_comp_ms']:.3f} ms; {b['tokens_per_s']:.1f} "
+        f"tokens/s; peak memory {b['peak_bytes'] - b['held_before_bytes']} "
+        f"bytes (less the {b['held_before_bytes']} bytes earlier phases "
+        f"held); {b['launches_per_step']} launches a step, device busy "
+        f"{b['trace']['busy_ms']:.2f} ms of {b['trace']['wall_ms']:.2f} "
+        f"(idle share {b['trace']['idle_share']:.3f}); on the wire a rank "
+        f"hands the all-reduce {b['wire_bytes_per_rank']} bytes a step "
+        f"(int32 payload, scales, metrics; float32 would be "
+        f"{b['float32_wire_bytes']}, int8 {b['int8_wire_bytes']}) ({card})")
+    if plain:
+        log(f"lm compressed (b) beside phase 15's plain step: step "
+            f"{plain['step_ms']:.3f} ms, forward+backward "
+            f"{plain['fwd_bwd_ms']:.3f}, AdamW {plain['opt_ms']:.3f}, peak "
+            f"{plain['peak_bytes'] - plain['held_before_bytes']} bytes, "
+            f"{plain['launches_per_step']} launches a step ({card})")
+    def g4(x):
+        return "none" if x is None else f"{x:.4g}"
+
+    for r in out["analytic"]:
+        log(f"lm compressed (c) {r['arch']} {r['step']} {r['batch']} x "
+            f"{r['seq']}: analytic.step_flops {g4(r['analytic_flops'])} "
+            f"(6/2·N·D {g4(r['model_flops'])}), this script's operations "
+            f"{g4(r['hand_ops'])}; analytic.step_hbm_bytes "
+            f"{g4(r['analytic_bytes'])}, this script's bytes "
+            f"{g4(r['hand_bytes'])}")
+    log(f"lm compressed: phase {out['seconds']:.1f} s ({card})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -3211,6 +3636,7 @@ def main() -> int:
     lm_recurrent = run_lm_recurrent(smi)
     lm_encdec = run_lm_encdec(smi)
     lm_train = run_lm_train(smi)
+    lm_compressed = run_lm_compressed(smi, lm_train)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -3224,7 +3650,7 @@ def main() -> int:
          "baselines": baselines, "distributed": distributed,
          "lm_serving": lm_serving, "lm_moe": lm_moe,
          "lm_recurrent": lm_recurrent, "lm_encdec": lm_encdec,
-         "lm_train": lm_train},
+         "lm_train": lm_train, "lm_compressed": lm_compressed},
         indent=1))
     log(smi)
     log(json.dumps({"kernels": [

@@ -119,20 +119,20 @@ def scatter_blocks(image, grid: RankGrid, rank: int):
 # ---------------------------------------------------------------------------
 
 
-def _on_host(grid: RankGrid, device: torch.device) -> bool:
-    """Whether the group carries ``device``'s tensors through host
-    buffers (gloo with a CUDA block).  Raises where it cannot carry
-    them at all."""
-    backend = dist.get_backend(grid.group)
+def on_host(group, device: torch.device) -> bool:
+    """Whether ``group`` (None: the default group) carries ``device``'s
+    tensors through host buffers (gloo with a CUDA tensor).  Raises
+    where it cannot carry them at all."""
+    backend = dist.get_backend(group)
     if backend == "nccl":
         if device.type != "cuda":
             raise ValueError("an NCCL group carries CUDA tensors only; "
-                             f"the block is on {device}")
+                             f"the tensor is on {device}")
         return False
     if backend == "gloo":
         return device.type == "cuda"
-    raise ValueError(f"distributed morphology runs on gloo or nccl groups, "
-                     f"got {backend!r}")
+    raise ValueError(f"repro_torch's collectives run on gloo or nccl "
+                     f"groups, got {backend!r}")
 
 
 def _wire(x: torch.Tensor, host: bool) -> torch.Tensor:
@@ -191,7 +191,7 @@ def exchange_halo(local: torch.Tensor, k: int, grid: RankGrid,
     every rank of the grid calls it together."""
     _check_depth(k, local.shape, grid)
     rank = grid.rank()
-    host = _on_host(grid, local.device)
+    host = on_host(grid.group, local.device)
     out = _exchange_axis(local, k, grid, rank, fill, 0, host)
     if grid.cols is not None:
         out = _exchange_axis(out, k, grid, rank, fill, 1, host)
@@ -208,7 +208,7 @@ def gather_blocks(local: torch.Tensor, grid: RankGrid) -> torch.Tensor:
     """The whole image on every rank, from each rank's block (an
     ``all_gather``; a collective every rank of the grid calls)."""
     grid.rank()
-    host = _on_host(grid, local.device)
+    host = on_host(grid.group, local.device)
     wire = _wire(local, host)
     parts = [torch.empty_like(wire) for _ in range(grid.size)]
     dist.all_gather(parts, wire, group=grid.group)
@@ -304,7 +304,7 @@ def distributed_reconstruct(grid: RankGrid, *, op: str = "erode",
             # paths under a serpentine mask can exceed the H+W diameter
             rows, cols = grid.shape
             limit = (x.shape[0] * rows * x.shape[1] * cols) // k + 2
-        host = _on_host(grid, x.device)
+        host = on_host(grid.group, x.device)
         it, changed = 0, True
         while changed and it < limit:
             ext = exchange_halo(x, k, grid, fill)

@@ -66,6 +66,28 @@ def reference_shared(cache: dict, cfg: ModelConfig) -> list[dict]:
             for g in range(n_groups)]
 
 
+def reference_leaves(cfg: ModelConfig, names) -> list[list[str]]:
+    """The port's parameter ``names`` grouped as the reference's leaves:
+    a scanned group's layers at one position of the period are one
+    stacked leaf (``layers.{g·period + j}.<path>`` over every group g);
+    a tail layer's tensors, and every tensor outside the stacks, are
+    leaves of their own.  Leaves in order of their first name."""
+    plans = {"layers": layer_plan(cfg)}
+    if cfg.is_enc_dec:
+        plans["encoder"] = layer_plan(encoder_config(cfg), cfg.encoder_layers)
+    leaves: dict = {}
+    for name in names:
+        stack, _, rest = name.partition(".")
+        key = name
+        if stack in plans:
+            index, _, path = rest.partition(".")
+            period, n_groups, _ = plans[stack]
+            if int(index) < period * n_groups:
+                key = (stack, int(index) % period, path)
+        leaves.setdefault(key, []).append(name)
+    return list(leaves.values())
+
+
 def params_from_reference(tree: dict, cfg: ModelConfig) -> dict:
     """The reference's parameter tree (numpy arrays) as the port's
     ``Model`` state dict of CPU tensors, for

@@ -1,2 +1,4 @@
-"""Optimizers of the training path: AdamW (``optim.adamw``), the port of
-``repro/optim/adamw.py``."""
+"""Optimizers of the training path — ports of ``repro/optim``: AdamW
+(``optim.adamw``) and the int8 gradient compression with error feedback
+(``optim.compression``: ``init_error``, ``quantize``,
+``psum_compressed``)."""

@@ -203,13 +203,13 @@ def test_groups_that_cannot_carry_the_block_raise(monkeypatch):
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
     monkeypatch.setattr(D.dist, "get_backend", lambda group=None: "nccl")
     with pytest.raises(ValueError, match="NCCL group carries CUDA"):
-        D._on_host(grid, cpu)
-    assert not D._on_host(grid, cuda)
+        D.on_host(grid.group, cpu)
+    assert not D.on_host(grid.group, cuda)
     monkeypatch.setattr(D.dist, "get_backend", lambda group=None: "mpi")
     with pytest.raises(ValueError, match="gloo or nccl"):
-        D._on_host(grid, cpu)
+        D.on_host(grid.group, cpu)
     monkeypatch.setattr(D.dist, "get_backend", lambda group=None: "gloo")
-    assert D._on_host(grid, cuda) and not D._on_host(grid, cpu)
+    assert D.on_host(grid.group, cuda) and not D.on_host(grid.group, cpu)
 
 
 def test_one_rank_group_runs_on_the_cpu_and_wants_the_gpu_by_default(

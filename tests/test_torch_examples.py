@@ -1,7 +1,8 @@
 """The port's examples (``examples/torch_*.py``) run end to end on the
 CPU at tiny sizes (``--device cpu``; the distributed one with two gloo
-ranks).  The four run side by side in subprocesses, started once for
-the module.
+ranks; the training one on reduced gemma-2b, checkpoints in
+``tmp_path``).  The five run side by side in subprocesses, started once
+for the module.
 """
 import os
 import pathlib
@@ -28,15 +29,20 @@ EXAMPLES = {
         ["grid: 2x1 ranks (gloo, cpu)",
          "chain sharded == single-device: True",
          "reconstruct sharded == single-device: True"]),
+    "torch_train_lm": (
+        ["--steps", "6", "--checkpoint-dir", "{tmp}/ckpt"],
+        ["loss ", " -> ", " over 6 steps"]),
 }
 
 
 @pytest.fixture(scope="module")
-def outputs():
+def outputs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("examples")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="1")
     procs = {name: subprocess.Popen(
         [sys.executable, str(REPO / "examples" / f"{name}.py"),
-         "--device", "cpu", *args], cwd=REPO, env=env, text=True,
+         "--device", "cpu", *(a.format(tmp=tmp) for a in args)], cwd=REPO,
+        env=env, text=True,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE)
         for name, (args, _) in EXAMPLES.items()}
     out = {}
