@@ -194,7 +194,25 @@ Phases, each of which makes the script exit non-zero when it fails:
    the idle share of one profiled step, beside phase 15's plain step
    and the bound (``train_bounds`` plus the compression's bytes); (c)
    ``launch.analytic``'s flops and bytes beside this script's bounds
-   at the same shapes.
+   at the same shapes;
+17. the dry run (``repro_torch.launch.dryrun``, ``op_count``,
+   ``roofline``, ``launch.sharding``, ``models.partitioning``), after
+   phase 16 has freed its model: (a) the CLI in subprocesses, all
+   started together, each rank 0 of a fake world — gemma-2b ×
+   train_4k on 16×16 and on 2×16×16 and deepseek-moe-16b × decode_32k
+   on 16×16 (fake CUDA tensors, nothing allocated), and geodesic2d ×
+   img_16k on 16×16 (a real 1024² uint8 block on the card, its kernel
+   launches reported: they happen in the subprocess, so the ``kernels``
+   line does not count them) — every cell OK, then the roofline over
+   their records; the H100 memory constant ``analytic.HBM_CAPACITY``
+   held against the card's total memory; (b) in one more subprocess,
+   the dry run's cell function on a one-rank world at phase 15's
+   launcher sizes (gemma-2b, batch 8 × 128, float32 masters and AdamW
+   state, bfloat16 activations, ``remat="full"``) against the same
+   ``build_train_step`` step run for real on the card: the traced dot
+   FLOPs must equal the op counter's reading of the real step, and the
+   predicted peak bytes must be within 10 % of
+   ``torch.cuda.max_memory_allocated``.
 
 The third-to-last line of standard output is the card's ``nvidia-smi``
 name and power limit, the second-to-last ``{"kernels": [...]}``, and
@@ -3571,6 +3589,188 @@ def run_lm_compressed(card: str, plain: dict | None = None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the dry run (launch.dryrun, op_count, roofline, sharding,
+# models.partitioning) on fake worlds of 256 and 512 ranks, and its
+# one-rank prediction against the card
+# ---------------------------------------------------------------------------
+
+DRYRUN_CELLS = (("gemma-2b", "train_4k", False), ("gemma-2b", "train_4k", True),
+                ("deepseek-moe-16b", "decode_32k", False),
+                ("geodesic2d", "img_16k", False))
+DRYRUN_TIMEOUT_S = 600
+#: phase 15's launcher sizes (``TrainerConfig``): global batch, tokens
+PREDICT_BATCH, PREDICT_SEQ = 8, 128
+PREDICT_MEMORY_TOL = 0.10
+
+
+def _src_env() -> dict:
+    import os
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    return env
+
+
+def predict_rank() -> None:
+    """(b), run in a subprocess of its own (a fake world is the process's
+    default group): the dry run's traced step on a one-rank world, then
+    the same step for real on the card -> one JSON line."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.op_count import OpCounter
+    from repro_torch.models import model as MDL
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import build_train_step
+
+    shape = ShapeSpec("train_4k", PREDICT_SEQ, PREDICT_BATCH, "train")
+    pred = dryrun.run_cell("gemma-2b", "train_4k", device=DEVICE,
+                           mesh_shape=(1, 1), shape=shape)
+    cfg = get_config("gemma-2b")
+    opt_cfg = adamw.AdamWConfig(
+        state_dtype="bfloat16" if cfg.param_dtype == "bfloat16" else None)
+    model = MDL.init_params(cfg, torch.Generator(DEVICE).manual_seed(0),
+                            DEVICE)
+    opt = adamw.init_state(opt_cfg, dict(model.named_parameters()))
+    gen = torch.Generator(DEVICE).manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab_size, (PREDICT_BATCH,
+                                                  PREDICT_SEQ),
+                              generator=gen, device=DEVICE,
+                              dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    step = build_train_step(cfg, opt_cfg, q_chunk=dryrun._q_chunk(shape),
+                            accum=pred["accum"], device=DEVICE)
+    real = []
+    for _ in range(2):              # the first step, then a warm one
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        counter = OpCounter()
+        counter.track(model, opt["m"], opt["v"], batch)
+        with counter:
+            model, opt, metrics = step(model, opt, batch)
+        torch.cuda.synchronize()
+        real.append({"dot_flops": counter.dot_flops,
+                     "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                     "held_before": held, "counter_peak": counter.peak,
+                     "loss": float(metrics["loss"])})
+    print("PREDICT" + json.dumps({"predicted": pred, "real": real}),
+          flush=True)
+
+
+def run_dryrun(card: str) -> dict:
+    """(a) the dry-run CLI on DRYRUN_CELLS and the roofline over their
+    records; (b) ``predict_rank`` in a subprocess.  Fails on any failed
+    cell, a geodesic cell that launched no kernel, FLOPs that differ or
+    a peak more than PREDICT_MEMORY_TOL off."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import analytic
+
+    t_phase = time.perf_counter()
+    # (b)'s subprocess needs ~53 GB of the card: hand back this
+    # process's cached blocks first
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    if not analytic.HBM_CAPACITY <= total < 1.1 * analytic.HBM_CAPACITY:
+        raise AssertionError(
+            f"dry run: analytic.HBM_CAPACITY {analytic.HBM_CAPACITY:.4g} B "
+            f"is not the card's {total} B")
+    out_dir = pathlib.Path(tempfile.mkdtemp(prefix="dryrun-"))
+    env = _src_env()
+    procs = {}
+    for arch, shape, mp in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--out", str(out_dir)]
+        procs[(arch, shape, mp)] = subprocess.Popen(
+            cmd + ["--multi-pod"] * mp, cwd=ROOT, env=env, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    predict = subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke as cs; cs.predict_rank()"],
+        cwd=ROOT, env=env, text=True, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE)
+    outputs = {}
+    try:
+        for key, p in procs.items():
+            outputs[key] = p.communicate(timeout=DRYRUN_TIMEOUT_S)
+        pred_out, pred_err = predict.communicate(timeout=DRYRUN_TIMEOUT_S)
+    finally:
+        for p in [*procs.values(), predict]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for key, p in procs.items():
+        if p.returncode != 0 or "1/1 cells OK" not in outputs[key][0]:
+            raise AssertionError(f"dry run (a) {key}: exit {p.returncode}\n"
+                                 f"{outputs[key][0][-3000:]}\n"
+                                 f"{outputs[key][1][-3000:]}")
+    records = {}
+    for path in sorted(out_dir.glob("*.json")):
+        r = json.loads(path.read_text())
+        records[(r["arch"], r["shape"], r["mesh"])] = r
+    geo = records[("geodesic2d", "img_16k", "16x16")]
+    if not sum(geo["launches"].values()) > 0:
+        raise AssertionError(f"dry run (a): the geodesic cell launched no "
+                             f"kernel: {geo['launches']}")
+    roof = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.roofline", str(out_dir)],
+        cwd=ROOT, env=env, text=True, capture_output=True, timeout=120)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    if roof.returncode != 0:
+        raise AssertionError(f"dry run: roofline failed\n{roof.stderr}")
+    for (arch, shape, mesh), r in records.items():
+        log(f"dry run (a) {arch} x {shape} x {mesh} ({r['chips']} fake "
+            f"ranks, {r['device']}): {r['bytes_per_device']} bytes a "
+            f"device (fits_80g {r['fits_80g']}), dot FLOPs a device "
+            f"{r['hlo_dot_flops_per_device']:.6g}, collective bytes a device "
+            f"{r['collective_bytes_per_device']:.6g} "
+            f"{ {k: f'{v:.4g}' for k, v in r['collectives'].items()} }, "
+            f"dominant {r['dominant']}, trace {r['trace_s']:.1f} s"
+            + (f", kernel launches {r['launches']}" if "launches" in r
+               else ""))
+    log("dry run (a) roofline (the H100's constants):\n" + roof.stdout)
+
+    if predict.returncode != 0:
+        raise AssertionError(f"dry run (b): exit {predict.returncode}\n"
+                             f"{pred_out[-3000:]}\n{pred_err[-3000:]}")
+    line = [ln for ln in pred_out.splitlines() if ln.startswith("PREDICT")]
+    res = json.loads(line[-1][len("PREDICT"):])
+    pred, real = res["predicted"], res["real"]
+    flops_ok = all(r["dot_flops"] == pred["hlo_dot_flops_per_device"]
+                   for r in real)
+    gap = [pred["bytes_per_device"] / r["max_memory_allocated"] - 1
+           for r in real]
+    log(f"dry run (b) gemma-2b one rank, batch {PREDICT_BATCH} x "
+        f"{PREDICT_SEQ}, float32 masters and AdamW state, bfloat16 "
+        f"activations, remat full: traced dot FLOPs "
+        f"{pred['hlo_dot_flops_per_device']:.10g} against the real step's "
+        f"{[r['dot_flops'] for r in real]} "
+        f"({'equal' if flops_ok else 'DIFFER'}); predicted peak "
+        f"{pred['bytes_per_device']} bytes (arguments "
+        f"{pred['arg_bytes']}) against max_memory_allocated "
+        f"{[r['max_memory_allocated'] for r in real]} (first, warm step; "
+        f"held before {[r['held_before'] for r in real]}, the op "
+        f"counter's own peak on the real step "
+        f"{[r['counter_peak'] for r in real]}): "
+        f"{', '.join(f'{g:+.2%}' for g in gap)} (bound "
+        f"{PREDICT_MEMORY_TOL:.0%}); trace {pred['trace_s']:.1f} s; "
+        f"losses {[round(r['loss'], 4) for r in real]} ({card})")
+    if not flops_ok:
+        raise AssertionError("dry run (b): traced FLOPs differ from the "
+                             "real step's")
+    if max(abs(g) for g in gap) > PREDICT_MEMORY_TOL:
+        raise AssertionError(f"dry run (b): predicted peak off by {gap}")
+    out = {"records": list(records.values()), "roofline": roof.stdout,
+           "predict": res, "memory_gap": gap, "hbm_total_bytes": total,
+           "seconds": time.perf_counter() - t_phase}
+    log(f"dry run: phase {out['seconds']:.1f} s; the card's memory {total} "
+        f"bytes against analytic.HBM_CAPACITY {analytic.HBM_CAPACITY:.4g} "
+        f"({card})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -3637,6 +3837,7 @@ def main() -> int:
     lm_encdec = run_lm_encdec(smi)
     lm_train = run_lm_train(smi)
     lm_compressed = run_lm_compressed(smi, lm_train)
+    dryrun = run_dryrun(smi)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -3650,7 +3851,8 @@ def main() -> int:
          "baselines": baselines, "distributed": distributed,
          "lm_serving": lm_serving, "lm_moe": lm_moe,
          "lm_recurrent": lm_recurrent, "lm_encdec": lm_encdec,
-         "lm_train": lm_train, "lm_compressed": lm_compressed},
+         "lm_train": lm_train, "lm_compressed": lm_compressed,
+         "dryrun": dryrun},
         indent=1))
     log(smi)
     log(json.dumps({"kernels": [

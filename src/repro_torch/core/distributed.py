@@ -131,6 +131,10 @@ def on_host(group, device: torch.device) -> bool:
         return False
     if backend == "gloo":
         return device.type == "cuda"
+    if backend == "fake":
+        # torch's fake group (the dry run's): takes any tensor, moves
+        # nothing
+        return False
     raise ValueError(f"repro_torch's collectives run on gloo or nccl "
                      f"groups, got {backend!r}")
 

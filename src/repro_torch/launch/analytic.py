@@ -36,6 +36,15 @@ NVLINK_LINKS = 18
 #: morphology cells: crediting the tensor-core peak to elementwise ops
 #: would overstate headroom ~15×.
 VPU_OPS = {1: 67e12, 2: 67e12, 4: 67e12, 8: 67e12}
+#: device memory a chip (NVIDIA H100 SXM data sheet: 80 GB HBM3); the
+#: dry run's ``fits_80g``
+HBM_CAPACITY = 80e9
+#: one small message between two GPUs over NVLink, on the device (NCCL
+#: send/receive of 4 bytes, one way, timed by CUDA events with the
+#: host's launches hidden): ``python -m repro_torch.launch.link_latency``
+#: on four NVIDIA H100 80GB HBM3 at 700 W measured 6.99 µs (an eager
+#: program pays ~82 µs a message on the host clock)
+NVLINK_LATENCY = 6.99e-6
 
 
 @dataclasses.dataclass

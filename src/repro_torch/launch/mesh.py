@@ -48,8 +48,10 @@ def make_production_mesh(*, multi_pod: bool = False,
 
 
 def batch_axes(mesh) -> tuple[str, ...]:
-    """Axes used for batch sharding (everything but "model")."""
-    return tuple(a for a in mesh.mesh_dim_names if a != "model")
+    """Axes used for batch sharding (everything but "model"), of a
+    ``DeviceMesh`` or of a stand-in with the reference's ``axis_names``."""
+    names = getattr(mesh, "mesh_dim_names", None) or mesh.axis_names
+    return tuple(a for a in names if a != "model")
 
 
 def make_host_mesh(shape=None, axes=("data", "model"),

@@ -14,6 +14,7 @@ from it.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -21,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models import partitioning as PT
 from repro_torch.models.layers import RMSNorm, normal_init_, param, rope
 
 NEG_INF = -1e30
@@ -72,15 +74,13 @@ def qkv(p: Attention, x: torch.Tensor, positions: torch.Tensor,
     """x: (B, S, D) -> q (B, S, H, hd), k, v (B, S, KV, hd), QK-normed
     (with the norm's default eps, as the reference) and rotated."""
     h, kv_h, hd = p.dims
-    b, s, _ = x.shape
     q = x @ p.wq
     k = x @ p.wk
     v = x @ p.wv
     if p.bq is not None:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
-    q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s, kv_h, hd)
-    v = v.reshape(b, s, kv_h, hd)
+    q, k, v = (PT.split_heads(q, h, hd), PT.split_heads(k, kv_h, hd),
+               PT.split_heads(v, kv_h, hd))
     if p.q_norm is not None:
         q = p.q_norm(q)
         k = p.k_norm(k)
@@ -266,7 +266,16 @@ def flash_attention(
     otherwise, where the reference asserts).  Where autograd wants a
     gradient the loop runs inside ``_FlashAttention`` (memory O(S·chunk)
     in both passes); otherwise (serving, under ``no_grad``) it keeps no
-    log-sum-exp."""
+    log-sum-exp.  On DTensors under a policy it runs on each rank's
+    shard (``partitioning.per_head``): the batch and heads placed as the
+    reference constrains its carries, the tile loop on plain tensors."""
+    return PT.per_head(functools.partial(
+        _flash, causal=causal, window=window, q_chunk=q_chunk,
+        kv_chunk=kv_chunk), q, k, v)
+
+
+def _flash(q, k, v, *, causal, window, q_chunk, kv_chunk):
+    """``flash_attention`` on plain tensors (or one rank's shards)."""
     sq0, sk0 = q.shape[1], k.shape[1]
     q_chunk = min(q_chunk, sq0)
     kv_chunk = min(kv_chunk, sk0)
@@ -304,6 +313,15 @@ def decode_attention(
     pos: int,                 # index of the current token
     window: int | None = None,
 ) -> torch.Tensor:
+    """On DTensors under a policy it runs as
+    ``partitioning.cache_attend`` places it."""
+    return PT.cache_attend(functools.partial(
+        _decode_attention, pos=pos, window=window), q, k_cache, v_cache)
+
+
+def _decode_attention(q, k_cache, v_cache, *, pos, window):
+    """``decode_attention`` on plain tensors, one rank's shards or a
+    sequence-split DTensor cache."""
     b, smax, kv_h, hd = k_cache.shape
     h = q.shape[2]
     g = h // kv_h

@@ -39,6 +39,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.backend import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import ssm as SSM
+from repro_torch.models import partitioning as PT
 from repro_torch.models import xlstm as XL
 from repro_torch.models.model import (
     Model,
@@ -139,8 +140,9 @@ def _attn_decode(layer, cfg: ModelConfig, x, entry: dict, pos: int,
     q, k, v = A.qkv(layer.attn, h, positions, cfg.rope_theta)
     ring = _is_ring(cfg, layer.kind, entry)
     wpos = pos % cfg.sliding_window if ring else pos
-    entry["k"][:, wpos] = k[:, 0]
-    entry["v"][:, wpos] = v[:, 0]
+    for name, new in (("k", k), ("v", v)):
+        PT.write_slot(entry[name], wpos, new[:, 0])
+        entry[name] = PT.constrain_cache(entry[name])
     # ring recency is structural; only pre-warm-up slots need masking,
     # which `slot <= pos` provides (always true once pos >= window)
     window = (cfg.sliding_window
@@ -257,6 +259,8 @@ def prefill(model: Model, tokens=None, *, embeds=None, enc_tokens=None,
     shared_entries: list[dict[str, Any]] = []
     shared = shared_groups(cfg)
     for i, layer in enumerate(model.layers):
+        # each layer's input on the batch sharding, as ``run_stack``'s
+        x = PT.constrain(x, ("batch", None, None))
         if isinstance(layer, RecurrentLayer):
             x, entry = recurrent_sublayer(layer, x)
             layers.append(entry)

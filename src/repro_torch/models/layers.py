@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models.partitioning import constrain, last_mean, vocab_take
+
 
 def param(shape, device=None, dtype=torch.float32) -> nn.Parameter:
     """An uninitialised parameter (``init_params`` fills it)."""
@@ -60,7 +62,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     cast back to ``x``'s dtype."""
     dt = x.dtype
     x = x.float()
-    var = x.square().mean(-1, keepdim=True)
+    var = last_mean(x.square())
     x = x * torch.rsqrt(var + eps)
     return (x * (1.0 + scale.float())).to(dt)
 
@@ -93,6 +95,8 @@ def mlp(x: torch.Tensor, activation: str, up: torch.Tensor,
         h = F.gelu(x @ gate, approximate="tanh") * (x @ up)
     else:
         h = F.gelu(x @ up, approximate="tanh")
+    if h.ndim == 3:
+        h = constrain(h, ("batch", None, "model"))
     return h @ down
 
 
@@ -145,7 +149,7 @@ def embed(table: torch.Tensor, tokens: torch.Tensor, d: int) -> torch.Tensor:
     """Row gather scaled by √d, the factor rounded to the table's dtype
     first (gemma-style scaling; a host scalar, so no copy to the
     device)."""
-    out = table[tokens]
+    out = vocab_take(table, tokens, 0, lambda t, i: t[i])
     return out * torch.tensor(math.sqrt(d), dtype=out.dtype).item()
 
 

@@ -65,6 +65,7 @@ from repro_torch.models.layers import (
     unembed,
 )
 from repro_torch.models.moe import MoE, moe_apply
+from repro_torch.models.partitioning import constrain, split_heads, vocab_take
 
 
 # ---------------------------------------------------------------------------
@@ -394,22 +395,24 @@ def cross_attention(layer: DecoderLayer, x, ck, cv,
     token (``q_chunk=None``) the decode attention does."""
     b, s = x.shape[:2]
     h, _, hd = layer.cross.dims
-    q = (layer.norm_cross(x) @ layer.cross.wq).reshape(b, s, h, hd)
+    q = split_heads(layer.norm_cross(x) @ layer.cross.wq, h, hd)
     if q_chunk is None:
         out = A.decode_attention(q, ck, cv, ck.shape[1] - 1)
     else:
         out = A.flash_attention(q, ck, cv, causal=False, q_chunk=q_chunk,
                                 kv_chunk=q_chunk)
-    return x + out.reshape(b, s, -1) @ layer.cross.wo
+    # pinned to the batch as the self-attention's output is: DTensor
+    # would reduce wo's pending sum by scattering the sequence
+    return constrain(x + out.reshape(b, s, -1) @ layer.cross.wo,
+                     ("batch", None, None))
 
 
 def cross_kv(layer: DecoderLayer, enc_out):
     """The encoder output's keys and values for one decoder layer's cross
     block -> (ck, cv), each (B, S_enc, KV, hd)."""
     _, kv_h, hd = layer.cross.dims
-    shape = enc_out.shape[:2] + (kv_h, hd)
-    return ((enc_out @ layer.cross.wk).reshape(shape),
-            (enc_out @ layer.cross.wv).reshape(shape))
+    return (split_heads(enc_out @ layer.cross.wk, kv_h, hd),
+            split_heads(enc_out @ layer.cross.wv, kv_h, hd))
 
 
 def attn_sublayer(layer: DecoderLayer, cfg: ModelConfig, x, positions,
@@ -422,7 +425,8 @@ def attn_sublayer(layer: DecoderLayer, cfg: ModelConfig, x, positions,
     window = cfg.sliding_window if layer.kind == "attn_local" else None
     out = A.flash_attention(q, k, v, causal=causal, window=window,
                             q_chunk=q_chunk, kv_chunk=q_chunk)
-    x = x + out.reshape(b, s, -1) @ layer.attn.wo
+    out = constrain(out.reshape(b, s, -1), ("batch", None, "model"))
+    x = constrain(x + out @ layer.attn.wo, ("batch", None, None))
     entry = {"k": k, "v": v}
     if layer.cross is not None:
         entry["ck"], entry["cv"] = cross_kv(layer, enc_out)
@@ -461,6 +465,7 @@ def logits_of(model: Model, x: torch.Tensor) -> torch.Tensor:
         logits = unembed(model.embed.table, x)
     else:
         logits = x @ model.lm_head["w"]
+    logits = constrain(logits, ("batch", None, "model"))
     return softcap(logits.float(), model.cfg.logit_softcap)
 
 
@@ -484,12 +489,16 @@ def encode(model: Model, enc_tokens=None, enc_embeds=None,
 
 def _layer_fwd(layer, cfg: ModelConfig, x, positions, q_chunk: int,
                causal: bool, enc_out):
-    """One layer over a whole sequence -> (x, its MoE aux or None)."""
+    """One layer over a whole sequence -> (x, its MoE aux or None).  The
+    output is pinned to the batch sharding under a policy: DTensor would
+    otherwise reduce the FFN's pending sum by scattering the sequence
+    over "model", which the next flattening of (B, S) cannot place."""
     if isinstance(layer, RecurrentLayer):
-        return recurrent_sublayer(layer, x)[0], None
+        x = recurrent_sublayer(layer, x)[0]
+        return constrain(x, ("batch", None, None)), None
     x, _, aux = attn_sublayer(layer, cfg, x, positions, q_chunk, causal,
                               enc_out)
-    return x, aux
+    return constrain(x, ("batch", None, None)), aux
 
 
 def run_stack(model: Model, cfg: ModelConfig, stack: str, x, positions,
@@ -509,6 +518,7 @@ def run_stack(model: Model, cfg: ModelConfig, stack: str, x, positions,
         idx = range(g * period, (g + 1) * period)
 
         def run(x, enc_out):
+            x = constrain(x, ("batch", None, None))
             aux = None
             for i in idx:
                 x, a = _layer_fwd(layers[i], cfg, x, positions, q_chunk,
@@ -587,9 +597,11 @@ def _chunk_nll(xc, lc, w, tied: bool, cap):
     and their count.  ``torch.gather`` refuses the label -1 that
     ``jnp.take_along_axis`` reads, so it gathers at ``max(label, 0)``;
     the mask zeroes those terms."""
-    logits = softcap((xc @ (w.T if tied else w)).float(), cap)
+    logits = constrain(xc @ (w.T if tied else w), ("batch", None, "model"))
+    logits = softcap(logits.float(), cap)
     lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, lc.clamp(min=0)[..., None].long())[..., 0]
+    gold = vocab_take(logits, lc.clamp(min=0).long(), -1,
+                      lambda t, i: t.gather(-1, i[..., None])[..., 0])
     mask = (lc >= 0).float()
     return ((lse - gold) * mask).sum(), mask.sum()
 
@@ -615,6 +627,8 @@ def loss_fn(model: Model, batch: dict, q_chunk: int = 1024,
 
     x, aux, w = in_view(model, compute_params(model, cfg.activation_dtype),
                         body)
+    # the chunks slice the sequence: keep it whole on every rank
+    x = constrain(x, ("batch", None, None))
     labels = batch["labels"]
     s = x.shape[1]
     cc = min(ce_chunk, s)

@@ -32,6 +32,7 @@ from torch import nn
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.models.layers import MLP, normal_init_, param
+from repro_torch.models.partitioning import constrain, on_replicas, replicate
 
 
 class MoE(nn.Module):
@@ -91,14 +92,14 @@ def route(x: torch.Tensor, router: torch.Tensor, cfg: MoEConfig) -> Routing:
     b, cs, _ = x.shape
     e, k = cfg.n_experts, cfg.top_k
     cap = _capacity(cs * k / e, cfg.capacity_factor)
-    probs = torch.softmax(x.float() @ router.float(), dim=-1)
+    probs = torch.softmax(replicate(x.float() @ router.float()), dim=-1)
     gate_w, gate_idx = torch.sort(probs, dim=-1, descending=True,
                                   stable=True)
     gate_w, gate_idx = gate_w[..., :k], gate_idx[..., :k]
     gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9)
     # a token's k experts are distinct, so its place in expert e's queue
     # is the number of earlier tokens of its row that chose e
-    chosen = torch.zeros((b, cs, e), dtype=torch.int32, device=x.device)
+    chosen = torch.zeros_like(probs, dtype=torch.int32)      # (B,Cs,E)
     chosen.scatter_(-1, gate_idx, 1)
     pos = (chosen.cumsum(1) - chosen).gather(-1, gate_idx)
     return Routing(gate_idx, gate_w, pos, pos < cap, probs, chosen)
@@ -113,7 +114,9 @@ def _experts(moe: MoE, xe: torch.Tensor, activation: str) -> torch.Tensor:
         h = g * torch.bmm(xe, moe.up)
     else:
         h = F.gelu(torch.bmm(xe, moe.up), approximate="tanh")
-    return torch.bmm(h, moe.down)
+    # expert hidden: F rides the batch axes (the weights' sharding)
+    h = constrain(h, ("model", None, "batch"))
+    return constrain(torch.bmm(h, moe.down), ("model", None, None))
 
 
 def _route_chunk(moe: MoE, x: torch.Tensor, cfg: MoEConfig,
@@ -122,6 +125,10 @@ def _route_chunk(moe: MoE, x: torch.Tensor, cfg: MoEConfig,
     b, cs, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     cap = _capacity(cs * k / e, cfg.capacity_factor)
+    # under a policy the routing, the dispatch scatter and the combine
+    # gather run replicated: DTensor has no rule for the in-place
+    # scatters (the dispatch's ``index_copy_`` runs on each replica)
+    x = replicate(x)
     gate_idx, gate_w, pos, valid, probs, chosen = route(x, moe.router, cfg)
 
     # slot (e, b, c) is row e·B·C + b·C + c of the (E, B·C, D) expert
@@ -129,17 +136,23 @@ def _route_chunk(moe: MoE, x: torch.Tensor, cfg: MoEConfig,
     rows = torch.arange(b, device=x.device).view(b, 1, 1) * cap
     slot = gate_idx * (b * cap) + rows + pos
     slot = torch.where(valid, slot, e * b * cap).reshape(-1)
-    xe = x.new_zeros((e * b * cap + 1, d))
-    xe.index_copy_(0, slot,
-                   x.unsqueeze(2).expand(b, cs, k, d).reshape(-1, d))
-    ye = _experts(moe, xe[:-1].view(e, b * cap, d), activation)
+
+    def dispatch(x, slot):
+        xe = x.new_zeros((e * b * cap + 1, d))
+        xe.index_copy_(0, slot,
+                       x.unsqueeze(2).expand(b, cs, k, d).reshape(-1, d))
+        return xe[:-1].view(e, b * cap, d)
+
+    xe = constrain(on_replicas(dispatch, x, slot), ("model", None, None))
+    ye = _experts(moe, xe, activation)
 
     # combine: the weights cast to the activation dtype before the sum
     # over K, as the reference's combine tensor is; a dropped
     # assignment weighs 0 (its slot index is kept in range)
     w = torch.where(valid, gate_w, 0.0).to(x.dtype).reshape(b * cs, 1, k)
-    yk = ye.reshape(e * b * cap, d)[slot.clamp_max(e * b * cap - 1)]
-    y = torch.bmm(w, yk.view(b * cs, k, d)).view(b, cs, d)
+    yk = replicate(ye).reshape(e * b * cap, d)[slot.clamp_max(e * b * cap - 1)]
+    y = constrain(torch.bmm(w, yk.view(b * cs, k, d)).view(b, cs, d),
+                  ("batch", None, None))
 
     # load-balance auxiliary (Switch-style), over every token of the chunk
     me = chosen.float().mean((0, 1))

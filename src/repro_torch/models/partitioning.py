@@ -1,0 +1,448 @@
+"""Activation-sharding constraints (logical axes -> mesh axes) on DTensor
+— the port of ``repro/models/partitioning.py``.
+
+The reference marks intermediates with ``with_sharding_constraint`` so
+that XLA's propagation does not replicate what it cannot infer.  Here a
+sharded trace is a DTensor program (``repro_torch.launch.dryrun``): the
+parameters and inputs are DTensors on a ``DeviceMesh``, each op
+propagates placements by its sharding rule, and ``constrain``
+redistributes a tensor to the placements the reference's
+``PartitionSpec`` names.  Where DTensor has no rule for an op, the
+model code constrains that op's inputs to ``Replicate`` — what XLA does
+with what it cannot infer.  The launcher installs a policy (mesh +
+batch axes); model code marks intermediates with logical dims:
+
+    x = constrain(x, ("batch", None, "model"))
+
+Every placement decision of the port lives in this module: the model
+code calls ``constrain`` and the named stand-ins below (per-shard
+loops, vocab lookups, the attention cache's placement and writes) and
+never reads a placement itself.  Each is a no-op without a policy.
+
+Every constraint is divisibility-guarded: a logical axis whose dim size
+doesn't divide the mesh-axis size is dropped (e.g. MQA's single KV head
+is replicated rather than sharded).  Without an installed policy (unit
+tests, single-device runs), or on a plain tensor, ``constrain`` is a
+no-op.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+#: the installed policy: one a process, not one a thread, because the
+#: autograd engine runs a CUDA backward (and the recompute of a
+#: checkpointed region) on a thread of its own
+_STATE = {"policy": None}
+
+#: a free dimension's spec entry: keep whatever placement it has (the
+#: reference's ``P.UNCONSTRAINED``; DTensor has no such placement).
+FREE = "<free>"
+
+
+def axis_sizes(mesh) -> dict[str, int]:
+    """``{axis name: size}`` of a ``DeviceMesh``, or of a stand-in whose
+    ``shape`` is already that dict (as the reference's tests build)."""
+    if isinstance(mesh.shape, dict):
+        return dict(mesh.shape)
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+@dataclasses.dataclass(frozen=True)
+class Policy:
+    mesh: Any
+    batch_axes: tuple    # mesh axes used for batch/fsdp
+    model_axis: str = "model"
+
+    def axis_size(self, logical: str) -> int:
+        sizes = axis_sizes(self.mesh)
+        if logical == "batch":
+            return math.prod(sizes[a] for a in self.batch_axes)
+        if logical == "model":
+            return sizes[self.model_axis]
+        return 1
+
+    def mesh_axes(self, logical: str):
+        if logical == "batch":
+            return (self.batch_axes if len(self.batch_axes) > 1
+                    else self.batch_axes[0])
+        if logical == "model":
+            return self.model_axis
+        return None
+
+
+def set_policy(policy: Policy | None):
+    _STATE["policy"] = policy
+
+
+def get_policy() -> Policy | None:
+    return _STATE["policy"]
+
+
+class apply_policy:
+    """Context manager used by launchers around a sharded trace."""
+
+    def __init__(self, policy: Policy | None):
+        self.policy = policy
+
+    def __enter__(self):
+        self.prev = get_policy()
+        set_policy(self.policy)
+        return self.policy
+
+    def __exit__(self, *exc):
+        set_policy(self.prev)
+
+
+def spec_of(pol: Policy, dims, shape, free: bool = False) -> tuple:
+    """The reference's ``PartitionSpec`` for logical ``dims`` over
+    ``shape``, as a tuple: ``None``, an axis name, a tuple of names, or
+    ``FREE`` (``free=True``'s unpinned dims)."""
+    if len(dims) != len(shape):
+        raise ValueError(f"dims {dims} vs shape {tuple(shape)}")
+    sizes = axis_sizes(pol.mesh)
+    fill = FREE if free else None
+    used = set()
+    spec = []
+    for d, size in zip(dims, shape):
+        if d is None or d in used:
+            spec.append(fill)
+            continue
+        if d == "batch":
+            # suffix fallback: a batch smaller than the full batch-axes
+            # product still shards over the inner axes (e.g. global
+            # batch 32 on ("pod","data")=64 -> shard over "data")
+            axes = pol.batch_axes
+            while axes and size % math.prod(sizes[a] for a in axes):
+                axes = axes[1:]
+            if not axes:
+                spec.append(fill)
+                continue
+            spec.append(axes if len(axes) > 1 else axes[0])
+            used.add(d)
+        elif size % pol.axis_size(d) == 0:
+            spec.append(pol.mesh_axes(d))
+            used.add(d)
+        else:
+            spec.append(fill)
+    return tuple(spec)
+
+
+def placements_of(spec, mesh_dim_names, current=None) -> list:
+    """One placement a mesh dimension for ``spec`` (a ``PartitionSpec``
+    as a tuple): ``Shard(d)`` where tensor dim ``d`` names that mesh
+    axis, else ``Replicate()`` — or, where ``current`` is given, the
+    mesh dimension's current placement if ``spec`` is ``FREE`` on the
+    tensor dim it shards, or if it is not a ``Shard`` at all (a pending
+    ``Partial`` under a free spec).
+
+    A tensor dim split over several axes shards in the spec's row-major
+    order; DTensor splits a dim over several mesh dims in mesh order, so
+    the spec must name them in mesh order (``ValueError`` otherwise)."""
+    names = list(mesh_dim_names)
+    out: list = [Replicate()] * len(names)
+    claimed = set()
+    for d, entry in enumerate(spec):
+        if entry is None or entry == FREE:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec entry {entry} names its axes out of "
+                             f"the mesh's order {tuple(names)}")
+        for i in idx:
+            out[i] = Shard(d)
+            claimed.add(i)
+    if current is not None:
+        for i, p in enumerate(current):
+            if i in claimed:
+                continue
+            if isinstance(p, Shard):
+                if p.dim < len(spec) and spec[p.dim] == FREE:
+                    out[i] = p
+            elif not isinstance(p, Replicate) and FREE in spec:
+                out[i] = p
+    return out
+
+
+def constrain(x, dims, free: bool = False):
+    """dims: per-axis logical name ("batch" | "model" | None).
+
+    free=True leaves unpinned dims as they are placed (the reference's
+    UNCONSTRAINED: XLA may shard them as it likes) instead of forcing
+    replication — used for tensors whose best extra sharding is
+    architecture-dependent (e.g. flash-attention accumulators when the
+    head count doesn't divide the model axis)."""
+    pol = get_policy()
+    if pol is None or not isinstance(x, DTensor):
+        return x
+    spec = spec_of(pol, dims, x.shape, free)
+    want = placements_of(spec, x.device_mesh.mesh_dim_names,
+                         x.placements if free else None)
+    if tuple(want) == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+def replicate(x):
+    """``x`` replicated over its mesh (a DTensor under a policy; else
+    ``x``): the stand-in, at a site whose op DTensor has no sharding
+    rule for, for what XLA does with what it cannot infer."""
+    if get_policy() is None or not isinstance(x, DTensor):
+        return x
+    want = [Replicate()] * x.device_mesh.ndim
+    if tuple(want) == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+def _split_along(x, dim: int) -> bool:
+    """Whether ``x`` is a DTensor split along its dim ``dim``."""
+    return isinstance(x, DTensor) and any(
+        isinstance(p, Shard) and p.dim % x.ndim == dim % x.ndim
+        for p in x.placements)
+
+
+def last_mean(x):
+    """``x.mean(-1, keepdim=True)``.  Where ``x`` is a DTensor split along
+    its last dim (the Mamba2 and mLSTM gated norms' width over
+    "model"), the ranks' sums are reduced in place, as XLA does:
+    DTensor would scatter the sequence to reduce a mean."""
+    if not _split_along(x, -1):
+        return x.mean(-1, keepdim=True)
+    s = x.sum(-1, keepdim=True)
+    want = [Replicate() if p.is_partial() else p for p in s.placements]
+    if want != list(s.placements):
+        s = s.redistribute(s.device_mesh, want)
+    return s / x.shape[-1]
+
+
+def local_shards(fn, in_dims, out_dims, *args):
+    """``fn(*args)`` on each rank's shard (``local_map``) for a function
+    that is independent along its logical dims — attention, the SSD and
+    mLSTM chunk scans are, per batch row and head.  ``in_dims`` gives
+    each argument's logical dims (``None`` for a non-tensor), ``out_dims``
+    each output's (one tuple for a single output).  A logical axis maps
+    to the mesh axes ``constrain`` would give it, the same for every
+    argument (dropped for all where one of them does not divide).  The
+    arguments are redistributed there first.  Without a policy, or with
+    no DTensor argument, this is ``fn(*args)``.
+
+    DTensor has no rule for these loops' einsums once two of their
+    batch dims are split (they flatten (B, H) into one dim split twice,
+    which it cannot place); per shard they are plain tensor ops."""
+    pol = get_policy()
+    mesh = next((a.device_mesh for a in args if isinstance(a, DTensor)),
+                None)
+    if pol is None or mesh is None:
+        return fn(*args)
+    from torch.distributed.tensor.experimental import local_map
+
+    resolved: dict = {}
+    for a, dims in zip(args, in_dims):
+        if dims is None:
+            continue
+        for name, entry in zip(dims, spec_of(pol, dims, a.shape)):
+            if name is not None:
+                resolved[name] = (entry if resolved.get(name, entry) == entry
+                                  else None)
+
+    def place(dims) -> list:     # a list: local_map reads a tuple as
+        return placements_of(    # one placement list an output
+            tuple(None if n is None else resolved.get(n) for n in dims),
+            mesh.mesh_dim_names)
+
+    in_p, local = [], []
+    for a, dims in zip(args, in_dims):
+        if dims is None:
+            in_p.append(None)
+            local.append(a)
+            continue
+        if not isinstance(a, DTensor):
+            a = DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim)
+        in_p.append(place(dims))
+        local.append(a.redistribute(mesh, in_p[-1]))
+    single = not out_dims or not isinstance(out_dims[0], tuple)
+    out_p = place(out_dims) if single else tuple(place(d) for d in out_dims)
+    return local_map(fn, out_placements=out_p, in_placements=tuple(in_p),
+                     device_mesh=mesh)(*local)
+
+
+def pointwise(fn, x):
+    """``fn(x)`` for an elementwise ``fn`` that DTensor has no rule for
+    (``logsigmoid``): on each rank's shard, placed as ``x`` is (a pending
+    sum reduced first)."""
+    if not isinstance(x, DTensor):
+        return fn(x)
+    from torch.distributed.tensor.experimental import local_map
+
+    p = [q if isinstance(q, (Shard, Replicate)) else Replicate()
+         for q in x.placements]
+    x = x.redistribute(x.device_mesh, p)
+    return local_map(fn, out_placements=p, in_placements=(p,),
+                     device_mesh=x.device_mesh)(x)
+
+
+def on_replicas(fn, *args):
+    """``fn(*args)`` where DTensor ``args`` are replicated first and ``fn``
+    runs on each rank's whole copy (``local_map``), for ops DTensor has
+    no sharding rule for at all (the MoE dispatch's ``index_copy_``);
+    the result is replicated.  Plain tensors call ``fn`` directly."""
+    ds = [a for a in args if isinstance(a, DTensor)]
+    if not ds:
+        return fn(*args)
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = ds[0].device_mesh
+    rep = [Replicate()] * mesh.ndim
+    args = [a.redistribute(mesh, rep) if isinstance(a, DTensor) else a
+            for a in args]
+    return local_map(fn, out_placements=rep,
+                     in_placements=tuple(rep if isinstance(a, DTensor)
+                                         else None for a in args),
+                     device_mesh=mesh)(*args)
+
+
+def _vocab_slice(src: DTensor, dim: int):
+    """(mesh dims that split ``src`` along ``dim``, in mesh order) ->
+    this rank's first index along ``dim`` and its local length."""
+    mesh, coord = src.device_mesh, src.device_mesh.get_coordinate()
+    split = [i for i, p in enumerate(src.placements)
+             if isinstance(p, Shard) and p.dim % src.ndim == dim % src.ndim]
+    index, ways = 0, 1
+    for i in split:
+        index, ways = index * mesh.size(i) + coord[i], ways * mesh.size(i)
+    n = src.shape[dim] // ways
+    return split, index * n, n
+
+
+def vocab_take(src, index, dim: int, take):
+    """``take(src, index)`` — a lookup along ``src``'s vocab dim ``dim``
+    (a table's rows, ``dim`` 0, or logits' last dim) — where ``src`` may
+    be a DTensor split along ``dim``.  Then each rank looks up the
+    indices its slice holds, the others read 0, and the result is a
+    pending sum over the splitting mesh dims.  DTensor's own masked
+    lookup checks its mask against the data on the host, which a fake
+    tensor cannot answer, and its mask does not survive a later select.
+
+    ``take(local_src, local_index)`` is the plain op; ``index`` is
+    placed like ``src`` on every other mesh dim (a table is first
+    gathered whole along its other dims)."""
+    if not isinstance(src, DTensor):
+        return take(src, index)
+    split, lo, n = _vocab_slice(src, dim)
+    if not split:
+        return take(src, index)
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = src.device_mesh
+    if dim == 0:          # a table: whole along its width on every rank
+        src = src.redistribute(mesh, [p if i in split else Replicate()
+                                      for i, p in enumerate(src.placements)])
+    if not isinstance(index, DTensor):
+        index = DTensor.from_local(index, mesh, [Replicate()] * mesh.ndim)
+    idx_p = [Replicate() if i in split else p
+             for i, p in enumerate(src.placements if dim != 0
+                                   else index.placements)]
+    index = index.redistribute(mesh, idx_p)
+    out_p = [Partial() if i in split else p for i, p in enumerate(idx_p)]
+
+    def local(s, ix):
+        rel = ix - lo
+        hit = (rel >= 0) & (rel < n)
+        out = take(s, rel.clamp(0, n - 1))
+        hit = hit.reshape(hit.shape + (1,) * (out.ndim - hit.ndim))
+        return torch.where(hit, out, torch.zeros((), dtype=out.dtype,
+                                                 device=out.device))
+
+    return local_map(local, out_placements=out_p,
+                     in_placements=(tuple(src.placements), tuple(idx_p)),
+                     device_mesh=mesh)(src, index)
+
+
+# ---------------------------------------------------------------------------
+# attention and its cache
+# ---------------------------------------------------------------------------
+
+#: (B, S, heads, hd) per shard: rows over the batch axes, heads over
+#: "model" where both head counts divide it (else every model rank
+#: attends with every head, as XLA does with heads it cannot split)
+HEADS = ("batch", None, "model", None)
+
+
+def split_heads(x, n: int, hd: int):
+    """(B, S, n·hd) -> (B, S, n, hd), heads over "model" where they
+    divide it (unconstrained otherwise).  Under a policy whose model
+    axis ``n`` heads do not divide, the merged dim is first replicated
+    over it: DTensor cannot unflatten a dim sharded unevenly."""
+    pol = get_policy()
+    if pol is not None and n % pol.axis_size("model"):
+        x = constrain(x, ("batch", None, None))
+    return constrain(x.reshape(x.shape[0], x.shape[1], n, hd), HEADS,
+                     free=True)
+
+
+def per_head(fn, q, k, v):
+    """``fn(q, k, v)`` — attention over (B, S, heads, hd) — on each rank's
+    shard of rows and heads (``local_shards``)."""
+    return local_shards(fn, (HEADS,) * 3, HEADS, q, k, v)
+
+
+def cache_attend(fn, q, k_cache, v_cache):
+    """Decode attention ``fn(q, k_cache, v_cache)``: a cache whole along
+    its sequence runs ``per_head``; a sequence-split cache (a batch-1
+    long context, or KV heads that do not divide "model") runs as
+    DTensor places it: its scores stay split, the softmax gathers them
+    and the value product sums over the ranks."""
+    if _split_along(k_cache, 1):
+        return fn(q, k_cache, v_cache)
+    return per_head(fn, q, k_cache, v_cache)
+
+
+def constrain_cache(t):
+    """A (B, S, KV, hd) cache ``t`` on its placement under the installed
+    policy: batch over the batch axes where it divides them, else the
+    sequence (a batch-1 long-context cache); KV heads over "model"
+    where they divide it, else the sequence."""
+    pol = get_policy()
+    if pol is None:
+        return t
+    bdim = "batch" if t.shape[0] % pol.axis_size("batch") == 0 else None
+    sdim = None if bdim else "batch"
+    if t.shape[2] % pol.axis_size("model") == 0:
+        return constrain(t, (bdim, sdim, "model", None))
+    return constrain(t, (bdim, sdim or "model", None, None))
+
+
+def write_slot(cache, pos: int, val) -> None:
+    """``cache[:, pos] = val`` in place.  A DTensor cache whose sequence
+    dim is sharded (``constrain_cache``) is written on the local shard
+    of the rank that holds ``pos``: DTensor's ``select`` of a sharded
+    dim would gather the whole cache to write one slot, into a copy."""
+    seq = [i for i, p in enumerate(getattr(cache, "placements", ()))
+           if isinstance(p, Shard) and p.dim == 1]
+    if not seq:
+        cache[:, pos] = val
+        return
+    # val (B, KV, hd) takes the cache's placements less the sequence dim
+    want = [Replicate() if i in seq else
+            Shard(p.dim - (p.dim > 1)) if isinstance(p, Shard) else p
+            for i, p in enumerate(cache.placements)]
+    local = val.redistribute(cache.device_mesh, want).to_local()
+    mesh, coord = cache.device_mesh, cache.device_mesh.get_coordinate()
+    index, ways = 0, 1
+    for i in seq:                # the mesh dims split S, outermost first
+        index, ways = index * mesh.size(i) + coord[i], ways * mesh.size(i)
+    size = cache.shape[1] // ways
+    if index * size <= pos < (index + 1) * size:
+        cache.to_local()[:, pos - index * size] = local
+
+
+def constrain_tree(tree, dims_fn):
+    """Constrain every tensor leaf; dims_fn(leaf) -> dims tuple."""
+    return torch.utils._pytree.tree_map_only(
+        torch.Tensor, lambda x: constrain(x, dims_fn(x)), tree)

@@ -16,11 +16,14 @@ decays) is cast to float32 first; products of two bfloat16 operands
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.layers import RMSNorm, normal_init_, param
+from repro_torch.models.partitioning import constrain, local_shards
 
 CONV_K = 4
 
@@ -93,23 +96,19 @@ def causal_conv(xbc: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     return F.silu(out + bias), ext[:, -(CONV_K - 1):]
 
 
-def mamba2_apply(p: Mamba2, x: torch.Tensor, *, chunk: int = 128):
-    """x: (B, S, D), S a multiple of ``min(chunk, S)`` -> (y (B, S, D),
-    final state (B, H, P, N) float32, conv tail (B, K-1, conv_dim))."""
-    b, s, _ = x.shape
-    n, hp = p.n_state, p.head_dim
-    z, xbc, dt, d_in, h = _split_proj(p, x)
-    xbc, conv_tail = causal_conv(xbc, p.conv_w, p.conv_b)
-    xs, bmat, cmat = torch.split(xbc, [d_in, n, n], dim=-1)
-    xs = xs.reshape(b, s, h, hp)
-    dt = F.softplus(dt.float() + p.dt_bias)                  # (B,S,H)
-    a = -torch.exp(p.A_log)                                   # (H,)
+_XS = ("batch", None, "model", None)      # (B, S, H, P)
+_BC = ("batch", None, None)                # (B, S, N): one group
 
-    chunk = min(chunk, s)
-    assert s % chunk == 0
+
+def _ssd(xs, dt, bmat, cmat, a, d_skip, *, chunk: int):
+    """The chunked SSD scan: xs (B, S, H, P), dt (B, S, H) float32,
+    bmat/cmat (B, S, N), a and the skip ``d_skip`` (H,) -> (y (B, S, H,
+    P) float32, final state (B, H, P, N) float32)."""
+    b, s, h, hp = xs.shape
+    n = bmat.shape[-1]
     causal = torch.ones((chunk, chunk), dtype=torch.bool,
-                        device=x.device).tril()[None, :, :, None]
-    state = torch.zeros((b, h, hp, n), dtype=torch.float32, device=x.device)
+                        device=xs.device).tril()[None, :, :, None]
+    state = torch.zeros((b, h, hp, n), dtype=torch.float32, device=xs.device)
     ys = []
     for c0 in range(0, s, chunk):
         xc, dtc = xs[:, c0:c0 + chunk], dt[:, c0:c0 + chunk]
@@ -129,8 +128,33 @@ def mamba2_apply(p: Mamba2, x: torch.Tensor, *, chunk: int = 128):
         rev = torch.exp(total - cum)                          # (B,L,H)
         state = state * torch.exp(total)[:, 0, :, None, None] + torch.einsum(
             "blhp,bln->bhpn", xf * (dtc * rev)[..., None], bf)
-        ys.append(y_intra + y_inter + p.D[None, None, :, None] * xc)
-    y = torch.cat(ys, dim=1).reshape(b, s, d_in).to(x.dtype)
+        ys.append(y_intra + y_inter + d_skip[None, None, :, None] * xc)
+    return torch.cat(ys, dim=1), state
+
+
+def mamba2_apply(p: Mamba2, x: torch.Tensor, *, chunk: int = 128):
+    """x: (B, S, D), S a multiple of ``min(chunk, S)`` -> (y (B, S, D),
+    final state (B, H, P, N) float32, conv tail (B, K-1, conv_dim))."""
+    b, s, _ = x.shape
+    n, hp = p.n_state, p.head_dim
+    z, xbc, dt, d_in, h = _split_proj(p, x)
+    xbc, conv_tail = causal_conv(xbc, p.conv_w, p.conv_b)
+    xs, bmat, cmat = torch.split(xbc, [d_in, n, n], dim=-1)
+    xs = constrain(xs.reshape(b, s, h, hp), ("batch", None, "model", None))
+    dt = constrain(F.softplus(dt.float() + p.dt_bias),        # (B,S,H)
+                   ("batch", None, "model"))
+    bmat = constrain(bmat, ("batch", None, None))
+    cmat = constrain(cmat, ("batch", None, None))
+    a = -torch.exp(p.A_log)                                   # (H,)
+    chunk = min(chunk, s)
+    assert s % chunk == 0
+    # the chunk scan per (row, head): each rank's shard under a policy
+    y, state = local_shards(
+        functools.partial(_ssd, chunk=chunk),
+        (_XS, _XS[:3], _BC, _BC, ("model",), ("model",)),
+        (_XS, ("batch", "model", None, None)),
+        xs, dt, bmat, cmat, a, p.D)
+    y = y.reshape(b, s, d_in).to(x.dtype)
     y = p.norm(y * F.silu(z))
     return y @ p.out_proj, state, conv_tail
 

@@ -16,6 +16,7 @@ refuses), and a product of two bfloat16 operands stays bfloat16.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -23,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.layers import RMSNorm, normal_init_, param
+from repro_torch.models.partitioning import local_shards, pointwise
 
 #: the stabiliser ``m`` of an empty memory
 M_EMPTY = -1e30
@@ -69,7 +71,7 @@ def _mlstm_proj(p: MLSTM, x: torch.Tensor):
     k = k.reshape(b, s, hn, hp) / math.sqrt(hp)
     v = v.reshape(b, s, hn, hp)
     li, lf = torch.chunk((x @ p.gates).float(), 2, dim=-1)  # (B,S,H) each
-    lf = F.logsigmoid(lf + p.fbias)
+    lf = pointwise(F.logsigmoid, lf + p.fbias)
     o = torch.sigmoid(x @ p.ogate)
     return q, k, v, li, lf, o
 
@@ -85,16 +87,16 @@ def mlstm_init_state(batch: int, n_heads: int, head_dim: int,
                        device=device))
 
 
-def mlstm_apply(p: MLSTM, x: torch.Tensor, *, chunk: int = 128):
-    """x: (B, S, D), S a multiple of ``min(chunk, S)`` -> (y (B, S, D),
-    the final (C, n, m))."""
-    b, s, d = x.shape
-    q, k, v, li, lf, o = _mlstm_proj(p, x)
-    chunk = min(chunk, s)
-    assert s % chunk == 0
+_QKV = ("batch", None, "model", None)     # (B, S, H, P)
+
+
+def _mlstm_scan(q, k, v, li, lf, *, chunk: int):
+    """The chunkwise mLSTM: q, k, v (B, S, H, P), li, lf (B, S, H)
+    float32 -> (h (B, S, H, P) float32, the final (C, n, m))."""
+    b, s, hn, hp = q.shape
     causal = torch.ones((chunk, chunk), dtype=torch.bool,
-                        device=x.device).tril()[None, :, :, None]
-    c_st, n_st, m_st = mlstm_init_state(b, p.n_heads, q.shape[-1], x.device)
+                        device=q.device).tril()[None, :, :, None]
+    c_st, n_st, m_st = mlstm_init_state(b, hn, hp, q.device)
     hs = []
     for c0 in range(0, s, chunk):
         qt, kt, vt = (t[:, c0:c0 + chunk] for t in (q, k, v))   # (B,L,H,P)
@@ -129,7 +131,24 @@ def mlstm_apply(p: MLSTM, x: torch.Tensor, *, chunk: int = 128):
         n_st = n_st * carry_w[..., None] + torch.einsum(
             "bmhp,bmh->bhp", kf, in_w)
         m_st = m_out
-    h = torch.cat(hs, dim=1).reshape(b, s, 2 * d)
+    return torch.cat(hs, dim=1), c_st, n_st, m_st
+
+
+def mlstm_apply(p: MLSTM, x: torch.Tensor, *, chunk: int = 128):
+    """x: (B, S, D), S a multiple of ``min(chunk, S)`` -> (y (B, S, D),
+    the final (C, n, m)).  The chunk scan runs per (row, head): each
+    rank's shard under a policy."""
+    b, s, d = x.shape
+    q, k, v, li, lf, o = _mlstm_proj(p, x)
+    chunk = min(chunk, s)
+    assert s % chunk == 0
+    h, c_st, n_st, m_st = local_shards(
+        functools.partial(_mlstm_scan, chunk=chunk),
+        (_QKV,) * 3 + (_QKV[:3],) * 2,
+        (_QKV, ("batch", "model", None, None), ("batch", "model", None),
+         ("batch", "model")),
+        q, k, v, li, lf)
+    h = h.reshape(b, s, 2 * d)
     y = p.norm(h.to(x.dtype) * o)
     return y @ p.out, (c_st, n_st, m_st)
 
@@ -140,7 +159,18 @@ def mlstm_decode(p: MLSTM, x: torch.Tensor, state: tuple):
     q, k, v, li, lf, o = _mlstm_proj(p, x)
     qt, kt, vt = q[:, 0], k[:, 0], v[:, 0]                       # (B,H,P)
     lit, lft = li[:, 0], lf[:, 0]                                # (B,H)
-    c_st, n_st, m_st = state
+    rows = ("batch", "model", None)
+    h, *state = local_shards(
+        _mlstm_step, (rows,) * 3 + (rows[:2],) * 2 + (rows + (None,), rows,
+                                                      rows[:2]),
+        (rows, rows + (None,), rows, rows[:2]), qt, kt, vt, lit, lft, *state)
+    y = p.norm(h.reshape(b, 1, 2 * d).to(x.dtype) * o)
+    return y @ p.out, tuple(state)
+
+
+def _mlstm_step(qt, kt, vt, lit, lft, c_st, n_st, m_st):
+    """One token's memory update and read: q, k, v (B, H, P), li, lf
+    (B, H) -> (h (B, H, P) float32, the new (C, n, m))."""
     m_new = torch.maximum(lft + m_st, lit)
     fw = torch.exp(lft + m_st - m_new)
     iw = torch.exp(lit - m_new)
@@ -151,8 +181,7 @@ def mlstm_decode(p: MLSTM, x: torch.Tensor, state: tuple):
     num = torch.einsum("bhp,bhqp->bhq", qf, c_new)
     den = torch.einsum("bhp,bhp->bh", qf, n_new)
     h = num / torch.maximum(den.abs(), torch.exp(-m_new))[..., None]
-    y = p.norm(h.reshape(b, 1, 2 * d).to(x.dtype) * o)
-    return y @ p.out, (c_new, n_new, m_new)
+    return h, c_new, n_new, m_new
 
 
 # ---------------------------------------------------------------------------
@@ -219,19 +248,35 @@ def slstm_apply(p: SLSTM, x: torch.Tensor):
     token, in order."""
     b, s, d = x.shape
     xg = (x @ p.wx).float()                                 # (B,S,4d)
-    r = p.r.float()
-    state = slstm_init_state(b, d, x.device)
+    # the token loop per row: each rank's rows under a policy (the
+    # gates mix heads, so the heads stay whole)
+    hs, *state = local_shards(
+        _slstm_scan, (_ROWS + (None,), (None,) * 3, (None,)),
+        (_ROWS + (None,),) + (_ROWS,) * 4, xg, p.r.float(), p.fbias)
+    y = p.norm(hs.to(x.dtype))
+    return y @ p.out, tuple(state)
+
+
+_ROWS = ("batch", None)            # (B, d): a row's state, heads whole
+
+
+def _slstm_scan(xg, r, fbias):
+    """xg (B, S, 4d) float32 -> (h (B, S, d), the final c, n, h, m)."""
+    b, s, d4 = xg.shape
+    state = slstm_init_state(b, d4 // 4, xg.device)
     hs = []
     for t in range(s):
-        state = _slstm_cell(r, p.fbias, xg[:, t], state)
+        state = _slstm_cell(r, fbias, xg[:, t], state)
         hs.append(state[2])
-    y = p.norm(torch.stack(hs, dim=1).to(x.dtype))
-    return y @ p.out, state
+    return (torch.stack(hs, dim=1), *state)
 
 
 def slstm_decode(p: SLSTM, x: torch.Tensor, state: tuple):
     """One token: x (B, 1, D), state (c, n, h, m) -> (y, new state)."""
     xg = (x[:, 0] @ p.wx).float()
-    state = _slstm_cell(p.r.float(), p.fbias, xg, state)
+    state = local_shards(
+        lambda r, fb, xg, *st: _slstm_cell(r, fb, xg, st),
+        ((None,) * 3, (None,), _ROWS) + (_ROWS,) * 4, (_ROWS,) * 4,
+        p.r.float(), p.fbias, xg, *state)
     y = p.norm(state[2][:, None, :].to(x.dtype))
-    return y @ p.out, state
+    return y @ p.out, tuple(state)

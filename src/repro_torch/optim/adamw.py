@@ -49,11 +49,14 @@ def schedule(cfg: AdamWConfig, step) -> np.float32:
 
 def init_state(cfg: AdamWConfig, params: dict) -> dict:
     """Zero moments ``m``, ``v`` (``cfg.state_dtype``, or each
-    parameter's dtype) beside each parameter, and ``step`` 0 (a host
-    int)."""
+    parameter's dtype) beside each parameter, placed as it is (a DTensor
+    parameter's moments are DTensors of its placements), and ``step`` 0
+    (a host int)."""
     def moment(p):
         dt = getattr(torch, cfg.state_dtype) if cfg.state_dtype else p.dtype
-        return torch.zeros(p.shape, dtype=dt, device=p.device)
+        return torch.zeros_like(p, dtype=dt,
+                                memory_format=torch.contiguous_format,
+                                requires_grad=False)
 
     return {"m": {n: moment(p) for n, p in params.items()},
             "v": {n: moment(p) for n, p in params.items()},

@@ -22,6 +22,7 @@ from repro_torch.launch.mesh import axis_group
 from repro_torch.models import convert
 from repro_torch.models import decode as DEC
 from repro_torch.models import model as MDL
+from repro_torch.models.partitioning import constrain
 from repro_torch.optim import adamw
 from repro_torch.optim.compression import mean_in_rank_order, psum_compressed
 
@@ -50,8 +51,10 @@ def build_train_step(
         if accum == 1:
             grads, metrics = _grads(model, batch, q_chunk)
         else:
-            micro = [{k: v[i * (v.shape[0] // accum):
-                            (i + 1) * (v.shape[0] // accum)]
+            # a microbatch keeps the batch's sharding under a policy
+            micro = [{k: constrain(v[i * (v.shape[0] // accum):
+                                     (i + 1) * (v.shape[0] // accum)],
+                                   ("batch",) + (None,) * (v.ndim - 1))
                       for k, v in batch.items()} for i in range(accum)]
             grads, ms = None, []
             for mb in micro:
