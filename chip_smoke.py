@@ -199,8 +199,10 @@ Phases, each of which makes the script exit non-zero when it fails:
    ``roofline``, ``launch.sharding``, ``models.partitioning``), after
    phase 16 has freed its model: (a) the CLI in subprocesses, all
    started together, each rank 0 of a fake world — gemma-2b ×
-   train_4k on 16×16 and on 2×16×16 and deepseek-moe-16b × decode_32k
-   on 16×16 (fake CUDA tensors, nothing allocated), and geodesic2d ×
+   train_4k on 16×16 and on 2×16×16, xlstm-350m × train_4k (its
+   sLSTM's 4,096 tokens and mLSTM's 32 chunks folded by the op
+   counter) and deepseek-moe-16b × decode_32k on 16×16 (fake CUDA
+   tensors, nothing allocated), and geodesic2d ×
    img_16k on 16×16 (a real 1024² uint8 block on the card, its kernel
    launches reported: they happen in the subprocess, so the ``kernels``
    line does not count them) — every cell OK, then the roofline over
@@ -212,7 +214,11 @@ Phases, each of which makes the script exit non-zero when it fails:
    ``build_train_step`` step run for real on the card: the traced dot
    FLOPs must equal the op counter's reading of the real step, and the
    predicted peak bytes must be within 10 % of
-   ``torch.cuda.max_memory_allocated``.
+   ``torch.cuda.max_memory_allocated``; (c) the same for xlstm-350m at
+   full width, 4 of its 24 layers, batch 8 × 640 (``remat="full"``),
+   where the prediction folds the sLSTM's 640 token trips and the
+   mLSTM's 5 chunk trips (each run as 4, its backward and recompute
+   weighted) and the real step runs every trip.
 
 The third-to-last line of standard output is the card's ``nvidia-smi``
 name and power limit, the second-to-last ``{"kernels": [...]}``, and
@@ -225,6 +231,7 @@ import collections
 import contextlib
 import dataclasses
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -3596,11 +3603,17 @@ def run_lm_compressed(card: str, plain: dict | None = None) -> dict:
 # ---------------------------------------------------------------------------
 
 DRYRUN_CELLS = (("gemma-2b", "train_4k", False), ("gemma-2b", "train_4k", True),
+                ("xlstm-350m", "train_4k", False),
                 ("deepseek-moe-16b", "decode_32k", False),
                 ("geodesic2d", "img_16k", False))
 DRYRUN_TIMEOUT_S = 600
-#: phase 15's launcher sizes (``TrainerConfig``): global batch, tokens
-PREDICT_BATCH, PREDICT_SEQ = 8, 128
+#: the one-rank predictions: (arch, global batch, tokens, real steps,
+#: layers) — (b) phase 15's launcher sizes (``TrainerConfig``), a first
+#: and a warm step, every layer; (c) 5 mLSTM chunks of 128 (a loop folds
+#: from 5 trips) and 640 sLSTM tokens at full width, 4 of the 24 layers
+#: (two mLSTM, two sLSTM: an eager step under the counter took ~60 s at
+#: 24), one step (the next one's loss is NaN: the first-loss check)
+PREDICTIONS = (("gemma-2b", 8, 128, 2, None), ("xlstm-350m", 8, 640, 1, 4))
 PREDICT_MEMORY_TOL = 0.10
 
 
@@ -3612,66 +3625,81 @@ def _src_env() -> dict:
     return env
 
 
-def predict_rank() -> None:
-    """(b), run in a subprocess of its own (a fake world is the process's
-    default group): the dry run's traced step on a one-rank world, then
-    the same step for real on the card -> one JSON line."""
+def predict_rank(arch: str, batch: int, seq: int, steps: int,
+                 layers: int | None) -> None:
+    """(b), (c), each run in a subprocess of its own (a fake world is the
+    process's default group): the dry run's traced step of ``arch`` (cut
+    to ``layers``, if given) on a one-rank world (its loops folded),
+    then the same step for real on the card (every trip run) -> one
+    JSON line."""
     from repro_torch.configs.registry import get_config
     from repro_torch.configs.shapes import ShapeSpec
     from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.op_count import OpCounter
     from repro_torch.models import model as MDL
     from repro_torch.optim import adamw
     from repro_torch.train.steps import build_train_step
 
-    shape = ShapeSpec("train_4k", PREDICT_SEQ, PREDICT_BATCH, "train")
-    pred = dryrun.run_cell("gemma-2b", "train_4k", device=DEVICE,
-                           mesh_shape=(1, 1), shape=shape)
-    cfg = get_config("gemma-2b")
+    shape = ShapeSpec("train_4k", seq, batch, "train")
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    with dryrun.fake_world(1):
+        mesh = make_host_mesh((1, 1), ("data", "model"), DEVICE)
+        t0 = time.perf_counter()
+        counter, arg_bytes = dryrun.trace_step(cfg, shape, mesh,
+                                               torch.device(DEVICE))
+        pred = {"hlo_dot_flops_per_device": counter.dot_flops,
+                "bytes_per_device": counter.peak, "arg_bytes": arg_bytes,
+                "accum": dryrun.choose_accum(cfg, shape, mesh),
+                "trace_s": time.perf_counter() - t0}
     opt_cfg = adamw.AdamWConfig(
         state_dtype="bfloat16" if cfg.param_dtype == "bfloat16" else None)
     model = MDL.init_params(cfg, torch.Generator(DEVICE).manual_seed(0),
                             DEVICE)
     opt = adamw.init_state(opt_cfg, dict(model.named_parameters()))
     gen = torch.Generator(DEVICE).manual_seed(1)
-    batch = {k: torch.randint(0, cfg.vocab_size, (PREDICT_BATCH,
-                                                  PREDICT_SEQ),
-                              generator=gen, device=DEVICE,
-                              dtype=torch.int32)
-             for k in ("tokens", "labels")}
+    data = {k: torch.randint(0, cfg.vocab_size, (batch, seq),
+                             generator=gen, device=DEVICE, dtype=torch.int32)
+            for k in ("tokens", "labels")}
     step = build_train_step(cfg, opt_cfg, q_chunk=dryrun._q_chunk(shape),
                             accum=pred["accum"], device=DEVICE)
     real = []
-    for _ in range(2):              # the first step, then a warm one
+    for _ in range(steps):          # the first step, then warm ones
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
         counter = OpCounter()
-        counter.track(model, opt["m"], opt["v"], batch)
+        counter.track(model, opt["m"], opt["v"], data)
+        t0 = time.perf_counter()
         with counter:
-            model, opt, metrics = step(model, opt, batch)
+            model, opt, metrics = step(model, opt, data)
         torch.cuda.synchronize()
         real.append({"dot_flops": counter.dot_flops,
                      "max_memory_allocated": torch.cuda.max_memory_allocated(),
                      "held_before": held, "counter_peak": counter.peak,
-                     "loss": float(metrics["loss"])})
+                     "loss": float(metrics["loss"]),
+                     "step_s": time.perf_counter() - t0})
     print("PREDICT" + json.dumps({"predicted": pred, "real": real}),
           flush=True)
 
 
 def run_dryrun(card: str) -> dict:
     """(a) the dry-run CLI on DRYRUN_CELLS and the roofline over their
-    records; (b) ``predict_rank`` in a subprocess.  Fails on any failed
-    cell, a geodesic cell that launched no kernel, FLOPs that differ or
-    a peak more than PREDICT_MEMORY_TOL off."""
+    records; (b), (c) ``predict_rank`` of each of PREDICTIONS in a
+    subprocess.  Fails on any failed cell, a geodesic cell that launched
+    no kernel, FLOPs that differ or a peak more than PREDICT_MEMORY_TOL
+    off."""
     import shutil
     import tempfile
 
+    from repro_torch.configs.registry import get_config
     from repro_torch.launch import analytic
 
     t_phase = time.perf_counter()
-    # (b)'s subprocess needs ~53 GB of the card: hand back this
-    # process's cached blocks first
+    # (b)'s subprocess needs ~53 GB of the card, (c)'s ~6 GB: hand back
+    # this process's cached blocks first
     torch.cuda.empty_cache()
     total = torch.cuda.get_device_properties(0).total_memory
     if not analytic.HBM_CAPACITY <= total < 1.1 * analytic.HBM_CAPACITY:
@@ -3687,17 +3715,19 @@ def run_dryrun(card: str) -> dict:
         procs[(arch, shape, mp)] = subprocess.Popen(
             cmd + ["--multi-pod"] * mp, cwd=ROOT, env=env, text=True,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE)
-    predict = subprocess.Popen(
-        [sys.executable, "-c", "import chip_smoke as cs; cs.predict_rank()"],
+    predicts = {args: subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke as cs; "
+                               f"cs.predict_rank(*{args!r})"],
         cwd=ROOT, env=env, text=True, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE)
-    outputs = {}
+        stderr=subprocess.PIPE) for args in PREDICTIONS}
+    outputs, pred_outputs = {}, {}
     try:
         for key, p in procs.items():
             outputs[key] = p.communicate(timeout=DRYRUN_TIMEOUT_S)
-        pred_out, pred_err = predict.communicate(timeout=DRYRUN_TIMEOUT_S)
+        for key, p in predicts.items():
+            pred_outputs[key] = p.communicate(timeout=DRYRUN_TIMEOUT_S)
     finally:
-        for p in [*procs.values(), predict]:
+        for p in [*procs.values(), *predicts.values()]:
             if p.poll() is None:
                 p.kill()
                 p.wait()
@@ -3732,38 +3762,56 @@ def run_dryrun(card: str) -> dict:
                else ""))
     log("dry run (a) roofline (the H100's constants):\n" + roof.stdout)
 
-    if predict.returncode != 0:
-        raise AssertionError(f"dry run (b): exit {predict.returncode}\n"
-                             f"{pred_out[-3000:]}\n{pred_err[-3000:]}")
-    line = [ln for ln in pred_out.splitlines() if ln.startswith("PREDICT")]
-    res = json.loads(line[-1][len("PREDICT"):])
-    pred, real = res["predicted"], res["real"]
-    flops_ok = all(r["dot_flops"] == pred["hlo_dot_flops_per_device"]
-                   for r in real)
-    gap = [pred["bytes_per_device"] / r["max_memory_allocated"] - 1
-           for r in real]
-    log(f"dry run (b) gemma-2b one rank, batch {PREDICT_BATCH} x "
-        f"{PREDICT_SEQ}, float32 masters and AdamW state, bfloat16 "
-        f"activations, remat full: traced dot FLOPs "
-        f"{pred['hlo_dot_flops_per_device']:.10g} against the real step's "
-        f"{[r['dot_flops'] for r in real]} "
-        f"({'equal' if flops_ok else 'DIFFER'}); predicted peak "
-        f"{pred['bytes_per_device']} bytes (arguments "
-        f"{pred['arg_bytes']}) against max_memory_allocated "
-        f"{[r['max_memory_allocated'] for r in real]} (first, warm step; "
-        f"held before {[r['held_before'] for r in real]}, the op "
-        f"counter's own peak on the real step "
-        f"{[r['counter_peak'] for r in real]}): "
-        f"{', '.join(f'{g:+.2%}' for g in gap)} (bound "
-        f"{PREDICT_MEMORY_TOL:.0%}); trace {pred['trace_s']:.1f} s; "
-        f"losses {[round(r['loss'], 4) for r in real]} ({card})")
-    if not flops_ok:
-        raise AssertionError("dry run (b): traced FLOPs differ from the "
-                             "real step's")
-    if max(abs(g) for g in gap) > PREDICT_MEMORY_TOL:
-        raise AssertionError(f"dry run (b): predicted peak off by {gap}")
+    results, gaps = {}, {}
+    for label, args in zip("bc", PREDICTIONS):
+        arch, batch, seq, _, layers = args
+        p = predicts[args]
+        pred_out, pred_err = pred_outputs[args]
+        if p.returncode != 0:
+            raise AssertionError(f"dry run ({label}): exit {p.returncode}\n"
+                                 f"{pred_out[-3000:]}\n{pred_err[-3000:]}")
+        line = [ln for ln in pred_out.splitlines()
+                if ln.startswith("PREDICT")]
+        res = json.loads(line[-1][len("PREDICT"):])
+        pred, real = res["predicted"], res["real"]
+        flops_ok = all(r["dot_flops"] == pred["hlo_dot_flops_per_device"]
+                       for r in real)
+        gap = [pred["bytes_per_device"] / r["max_memory_allocated"] - 1
+               for r in real]
+        log(f"dry run ({label}) {arch} one rank, "
+            f"{layers or get_config(arch).n_layers} layers, batch {batch} x "
+            f"{seq}, float32 masters and AdamW state, {pred['accum']} "
+            f"microbatch(es), remat {get_config(arch).remat}: traced dot "
+            f"FLOPs {pred['hlo_dot_flops_per_device']:.10g} against the "
+            f"real step's {[r['dot_flops'] for r in real]} "
+            f"({'equal' if flops_ok else 'DIFFER'}); predicted peak "
+            f"{pred['bytes_per_device']} bytes (arguments "
+            f"{pred['arg_bytes']}) against max_memory_allocated "
+            f"{[r['max_memory_allocated'] for r in real]} (the first step, "
+            f"then warm ones; held before {[r['held_before'] for r in real]}, "
+            f"the op "
+            f"counter's own peak on the real step "
+            f"{[r['counter_peak'] for r in real]}): "
+            f"{', '.join(f'{g:+.2%}' for g in gap)} (bound "
+            f"{PREDICT_MEMORY_TOL:.0%}); trace {pred['trace_s']:.1f} s, "
+            f"real steps {[round(r['step_s'], 2) for r in real]} s; losses "
+            f"{[round(r['loss'], 4) for r in real]} ({card})")
+        if not flops_ok:
+            raise AssertionError(f"dry run ({label}): traced FLOPs differ "
+                                 f"from the real step's")
+        # the first step's loss only: at full width xlstm-350m's
+        # gradients grow ~1e9-fold each 64 tokens through its sLSTM
+        # (chaotic under the reference's init) and overflow float32 by
+        # 640, so its second step's loss is NaN (PERF.md §6)
+        if not math.isfinite(real[0]["loss"]):
+            raise AssertionError(f"dry run ({label}): the first step's "
+                                 f"loss is {real[0]['loss']}")
+        if max(abs(g) for g in gap) > PREDICT_MEMORY_TOL:
+            raise AssertionError(f"dry run ({label}): predicted peak off by "
+                                 f"{gap}")
+        results[arch], gaps[arch] = res, gap
     out = {"records": list(records.values()), "roofline": roof.stdout,
-           "predict": res, "memory_gap": gap, "hbm_total_bytes": total,
+           "predict": results, "memory_gap": gaps, "hbm_total_bytes": total,
            "seconds": time.perf_counter() - t_phase}
     log(f"dry run: phase {out['seconds']:.1f} s; the card's memory {total} "
         f"bytes against analytic.HBM_CAPACITY {analytic.HBM_CAPACITY:.4g} "

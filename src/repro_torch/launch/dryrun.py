@@ -27,6 +27,18 @@ port needs no ``grad_shardings``: a DTensor parameter's gradient
 carries its placement (a pending sum over the batch axes), which the
 AdamW update reduces into the moments' placement.
 
+The step's loops are folded, as the reference's ``hlo_parse`` counts a
+``lax.scan``'s ``while`` body once and multiplies it by its trip count:
+the model code runs the microbatches, the SSD and mLSTM chunks and the
+sLSTM tokens through ``partitioning.scan``, and under the counter
+(``OpCounter(fold=True)``) a loop of n ≥ 5 trips runs trips 0, 1, 2 and
+n − 1, counts trip 2's forward and backward n − 3 times, and stands in
+for the trips between with tensors of their sizes.  The record is the
+unfolded trace's (dot FLOPs, collectives, peak bytes), which the CPU
+tests hold; only ``trace_s`` shrinks (zamba2-7b × train_4k folds 16
+microbatches of 81 layers of 32 SSD chunks, xlstm-350m × prefill_32k
+32,768 sLSTM tokens).  ``run_cell(..., fold=False)`` runs every trip.
+
 The geodesic cells run ``core.distributed.distributed_reconstruct`` on
 a ``RankGrid`` of the reference's row axes × "model" over the fake
 group, as the rank that holds block (1, 1) (an interior block, which
@@ -269,23 +281,40 @@ def build_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, device):
     return fn, (model, cache, batch["tokens"]), held
 
 
+def trace_step(cfg: ModelConfig, shape: ShapeSpec, mesh, device, *,
+               fold: bool = True):
+    """(the op counter, the argument bytes) of one step of the cell on
+    ``mesh`` (a ``DeviceMesh`` of the process's default group), traced
+    under ``FakeTensorMode`` and the activation policy."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    policy = PT.Policy(mesh, batch_axes(mesh))
+    with FakeTensorMode(), implicit_replication(), PT.apply_policy(policy):
+        fn, args, held = build_cell(cfg, shape, mesh, device)
+        counter = OpCounter(fold=fold)
+        counter.track(held)
+        arg_bytes = counter.live
+        with counter:
+            fn(*args)
+    return counter, arg_bytes
+
+
 def run_cell(arch: str, shape_name: str, multi_pod: bool = False, *,
              device=None, mesh_shape=None, shape: ShapeSpec | None = None,
              reduced: bool = False, image=None,
-             refactor_mesh: bool = True) -> dict:
+             refactor_mesh: bool = True, fold: bool = True) -> dict:
     """One cell's record.  ``mesh_shape`` (2 or 3 sizes, axes
     ("data", "model") or ("pod", "data", "model")) stands in for the
     production mesh, ``shape`` for the named cell's ``ShapeSpec``,
     ``reduced`` for the full configuration, ``image`` (H, W) for a
-    geodesic shape's size; ``device=None`` is the GPU."""
+    geodesic shape's size; ``device=None`` is the GPU.  ``fold=False``
+    runs every trip of the folded loops (``op_count``)."""
     device = resolve_device(device)
     dims = tuple(mesh_shape or ((2, 16, 16) if multi_pod else (16, 16)))
     mesh_name = "x".join(map(str, dims))
     if arch == "geodesic2d":
         return run_geodesic_cell(shape_name, dims, device, image=image)
-    from torch._subclasses.fake_tensor import FakeTensorMode
-    from torch.distributed.tensor.experimental import implicit_replication
-
     cfg = get_reduced(arch) if reduced else get_config(arch)
     shape = shape or SHAPES[shape_name]
     with fake_world(math.prod(dims)):
@@ -294,16 +323,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False, *,
             mesh = effective_mesh(cfg, mesh)
         sizes = axis_sizes(mesh)
         t0 = time.perf_counter()
-        policy = PT.Policy(mesh, batch_axes(mesh))
-        with FakeTensorMode(), implicit_replication(), \
-                PT.apply_policy(policy):
-            fn, args, held = build_cell(cfg, shape, mesh, device)
-            counter = OpCounter()
-            counter.track(held)
-            arg_bytes = counter.live
-            with counter:
-                fn(*args)
-            peak = counter.peak
+        counter, arg_bytes = trace_step(cfg, shape, mesh, device, fold=fold)
+        peak = counter.peak
         trace_s = time.perf_counter() - t0
         accum = choose_accum(cfg, shape, mesh)
     hlo = counter.result()

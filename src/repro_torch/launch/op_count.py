@@ -32,13 +32,37 @@ an op creates (on a device, not ``meta``) counts, rounded up to the CUDA caching
 512-byte blocks, from the op that makes it until it is freed; the
 step's arguments count from ``track``.
 
-Eager loops unroll (the flash tile loop, the SSD chunks, the sLSTM
-tokens), so every trip is counted as it runs and there is no
-``dynamic_trip``; a loop that a trace cuts short is extrapolated by its
-caller (``dryrun.run_geodesic_cell``).
+Loops.  An eager loop runs every trip, so by default every trip is
+counted as it runs.  ``OpCounter(fold=True)`` folds the loops that the
+model code runs through ``models.partitioning.scan`` (the microbatches,
+the SSD and mLSTM chunks, the sLSTM tokens), as ``hlo_parse`` counts a
+``while`` body once and multiplies it by its trip count.  A folded loop
+of n ≥ 5 trips runs four of them:
+
+  * trip 0, which may differ (an empty initial state, no gradient sum
+    yet), and trip 1, whose backward frees what trip 0's outputs left
+    pending (the gradient their sum keeps whole);
+  * trip 2, counted n − 3 times: its forward ops, and the backward ops
+    of the autograd nodes it created (a node's ``_sequence_nr`` falls in
+    the trip's range), a checkpoint's recompute included (it runs
+    inside such a node; the loops it folds multiply their weights into
+    the node's);
+  * trip n − 1, whose final carry no later trip reads.
+
+The n − 4 trips between stand as ``_stand_ins``: their per-trip outputs
+as tensors of trip 2's shapes, and the rest of what trip 2 left live
+(what autograd, or a checkpoint's recompute, saved) as one block, held
+until the backward has passed trip 2 (``_Bridge``, ``_Release``).  The
+backward runs the nodes in the reverse of their creation order, so the
+live bytes follow the unfolded trace's at every point: the dot FLOPs,
+the collectives by kind and the peak equal it (``tests/
+test_torch_fold.py``).  The flash tile loop and the layer stack are not
+folded; a loop that a trace cuts short is extrapolated by its caller
+(``dryrun.run_geodesic_cell``).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import weakref
 from collections import defaultdict
@@ -47,7 +71,7 @@ import torch
 from torch._guards import active_fake_mode
 from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_leaves
+from torch.utils._pytree import tree_flatten, tree_leaves, tree_unflatten
 from torch.utils.weak import WeakIdKeyDictionary
 
 _aten = torch.ops.aten
@@ -174,11 +198,19 @@ def _unwatch_propagation() -> None:
         ShardingPropagator._propagate_tensor_meta_non_cached = _PATCHED.pop()
 
 
+class _Trip:
+    """A weighted trip that is running (compared by identity)."""
+    __slots__ = ("weight", "in_backward")
+
+    def __init__(self, weight: float, in_backward: bool):
+        self.weight, self.in_backward = weight, in_backward
+
+
 class OpCounter(TorchDispatchMode):
     """``with OpCounter() as c: step()`` -> ``c.result()``, with the keys
     of ``hlo_parse.analyze``'s result."""
 
-    def __init__(self):
+    def __init__(self, fold: bool = False):
         super().__init__()
         self.live = 0
         self.peak = 0
@@ -188,6 +220,12 @@ class OpCounter(TorchDispatchMode):
         self.counts: dict[str, float] = defaultdict(float)
         self.sites: dict[tuple, list] = defaultdict(lambda: [0, 0.0])
         self._kinds = _kinds()
+        self.fold_loops = fold
+        self._trips: list[_Trip] = []
+        # [first, end (None while it runs)] sequence numbers of the
+        # autograd nodes a weighted forward trip created, and their weight
+        self._ranges: list = []
+        self._node_weights: dict = {}
 
     def track(self, *held) -> None:
         """Count the storages of ``held`` (tensors, DTensors, modules'
@@ -216,17 +254,100 @@ class OpCounter(TorchDispatchMode):
         self.live -= size
 
     def __enter__(self):
+        from repro_torch.models import partitioning
+
         # ops that run under another fake mode than the one active here
         # are DTensor's sharding propagation, on global shapes
         self._fake = active_fake_mode()
         _watch_propagation()
+        if self.fold_loops:
+            partitioning.set_folder(self)
         return super().__enter__()
 
     def __exit__(self, *exc):
+        from repro_torch.models import partitioning
+
         try:
             return super().__exit__(*exc)
         finally:
+            if self.fold_loops:
+                partitioning.set_folder(None)
             _unwatch_propagation()
+
+    # -- folded loops -------------------------------------------------------
+
+    def fold(self, body, n: int):
+        """``partitioning.scan(body, n)`` folded (``n`` ≥ 5): trips 0, 1,
+        2 and n − 1 run, trip 2 weighted n − 3, ``_stand_ins`` for the
+        n − 4 trips between."""
+        carry, first = body(0, None)
+        carry, second = body(1, carry)
+        mark = _Release.after(carry)
+        before = self.live
+        with self._weighted(n - 3):
+            carry, out = body(2, carry)
+        # the live bytes the n − 3 middle trips leave, as trip 2 did
+        target = before + (n - 3) * (self.live - before)
+        between, hold = _stand_in_trips(self, mark, carry, out, n - 4,
+                                        target)
+        carry, last = body(n - 1, carry)
+        del hold
+        return carry, [first, second, out, *between, last]
+
+    @contextlib.contextmanager
+    def _weighted(self, weight: float):
+        """Count the ops that run inside as ``weight`` times (times the
+        weights around them), and, in a forward, the backward of the
+        autograd nodes created inside."""
+        in_backward = torch._C._current_autograd_node() is not None
+        trip = _Trip(weight, in_backward)
+        nodes = None
+        if not in_backward and torch.is_grad_enabled():
+            # open while the trip runs: a microbatch's backward runs in it
+            nodes = [torch._C._autograd._get_sequence_nr(), None,
+                     self._forward_weight() * weight]
+            self._ranges.append(nodes)
+        self._trips.append(trip)
+        try:
+            yield
+        finally:
+            self._trips.remove(trip)
+            if nodes is not None:
+                nodes[1] = torch._C._autograd._get_sequence_nr()
+
+    def _forward_weight(self) -> float:
+        w = 1.0
+        for trip in self._trips:
+            w *= trip.weight
+        return w
+
+    def _node_weight(self, node) -> float:
+        """The weight of the forward trip that created ``node`` (the
+        innermost one whose sequence numbers hold its own; 1 if none)."""
+        seq = node._sequence_nr()
+        w = self._node_weights.get(seq)
+        if w is None:
+            inner = max(((lo, w) for lo, hi, w in self._ranges
+                         if lo <= seq and (hi is None or seq < hi)),
+                        default=(0, 1.0))
+            w = self._node_weights[seq] = inner[1]
+        return w
+
+    def _weight(self) -> float:
+        """How many times the op dispatched now counts: in a forward, the
+        product of the weighted trips around it; in a backward, its
+        node's weight times the trips entered inside that backward (a
+        recompute's folded loops)."""
+        if not self._trips and not self._ranges:
+            return 1.0
+        node = torch._C._current_autograd_node()
+        if node is None:
+            return self._forward_weight()
+        w = self._node_weight(node)
+        for trip in self._trips:
+            if trip.in_backward:
+                w *= trip.weight
+        return w
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if any(issubclass(t, DTensor) for t in types):
@@ -240,16 +361,17 @@ class OpCounter(TorchDispatchMode):
                 self._hold(t)
         packet = func._overloadpacket
         if packet in DOTS:
-            self.dot_flops += DOTS[packet](*args)
+            self.dot_flops += DOTS[packet](*args) * self._weight()
         elif packet in self._kinds:
             kind, where = self._kinds[packet]
             result = out if where == "out" else args[0]
+            w = self._weight()
             payload = _nbytes(result) * (2.0 if kind == "all-reduce" else 1.0)
-            self.bytes[kind] += payload
-            self.counts[kind] += 1
+            self.bytes[kind] += payload * w
+            self.counts[kind] += w
             site = self.sites[(kind, _describe(result))]
-            site[0] += 1
-            site[1] += payload
+            site[0] += w
+            site[1] += payload * w
         return out
 
     def result(self) -> dict:
@@ -257,6 +379,145 @@ class OpCounter(TorchDispatchMode):
         ``collective_counts`` by kind, ``collective_bytes_total``,
         ``top_collectives``."""
         return summary(self.dot_flops, self.bytes, self.counts, self.sites)
+
+
+def _stand_ins(counter: OpCounter, carry, out, trips: int, target: int):
+    """(the outputs of ``trips`` folded trips, flat, trip by trip, as
+    trip 2's ``out``; a block) such that the live bytes reach
+    ``target``.  An output that is also part of the carry (the sLSTM's
+    h) lies in the block, as the later trips keep each carry alive;
+    another lies in a storage of its own, one for all the trips, freed
+    when their list goes.  The block holds the rest of what the folded
+    trips would have left live.  Each storage is cut into the trips'
+    tensors by one ``unbind``, however many trips there are."""
+    carried = {_local(t).untyped_storage()._cdata for t in carry}
+    shared = [_local(t).untyped_storage()._cdata in carried for t in out]
+    sizes = [_block(t.numel() * t.element_size()) for t in out]
+    leaves = [None if tied else _fresh(t, trips, n)
+              for t, n, tied in zip(out, sizes, shared)]
+    views = trips * sum(n for n, tied in zip(sizes, shared) if tied)
+    block = torch.empty(max(views, target - counter.live), dtype=torch.uint8,
+                        device=(*carry, *out)[0].device)
+    at = 0
+    for j, (t, n) in enumerate(zip(out, sizes)):
+        if shared[j]:
+            leaves[j] = _cut(block[at:at + trips * n], t, trips, n)
+            at += trips * n
+    return [leaves[j][k] for k in range(trips) for j in range(len(out))], block
+
+
+def _fresh(like: torch.Tensor, trips: int, nbytes: int):
+    """``trips`` new tensors like ``like`` (each ``nbytes``, as the
+    allocator rounds it)."""
+    if isinstance(like, DTensor):          # the microbatches' metrics
+        return [torch.empty_like(like) for _ in range(trips)]
+    return _cut(torch.empty(trips * nbytes, dtype=torch.uint8,
+                            device=like.device), like, trips, nbytes)
+
+
+def _cut(raw: torch.Tensor, like: torch.Tensor, trips: int, nbytes: int):
+    """``trips`` tensors of ``like``'s shape and dtype in the bytes
+    ``raw``, one each ``nbytes``."""
+    strides, step = [], 1
+    for d in reversed(like.shape):
+        strides.insert(0, step)
+        step *= d
+    return raw.view(like.dtype).as_strided(
+        (trips, *like.shape), (nbytes // like.element_size(), *strides)
+    ).unbind(0)
+
+
+class _Release(torch.autograd.Function):
+    """A node created between trips 1 and 2 of a folded loop.  The
+    backward runs the nodes in the reverse of their creation order, so
+    this one runs after trip 2's and before trip 1's: it frees the
+    folded trips' block (``_Bridge``), as the unfolded backward has freed
+    the saved tensors of the trips between by the time it reaches trip
+    1.  Its output is an empty mark that the bridge takes in."""
+
+    @staticmethod
+    def forward(ctx, held, *carry):
+        ctx.held, ctx.n_carry = held, len(carry)
+        return carry[0].new_empty(0)
+
+    @staticmethod
+    def backward(ctx, _):
+        ctx.held.clear()
+        return (None,) * (1 + ctx.n_carry)
+
+    @classmethod
+    def after(cls, carry):
+        """(the mark, the list the node empties) on trip 1's ``carry``
+        where autograd records it, else ``None``."""
+        tensors = [t for t in tree_leaves(carry)
+                   if isinstance(t, torch.Tensor)]
+        if not (torch.is_grad_enabled()
+                and any(t.requires_grad for t in tensors)):
+            return None
+        held: list = []
+        return cls.apply(held, *tensors), held
+
+
+class _Bridge(torch.autograd.Function):
+    """The n − 4 folded trips of a loop where autograd records: their
+    outputs and block are ``_stand_ins``' (trip n − 1 takes trip 2's
+    carry itself, so its backward adds the carry's gradient where trip
+    n − 2's would).  Created between trips 2 and n − 1, the node runs in
+    the backward between theirs.  The block is saved for the backward
+    (under a checkpoint, the recompute's block is held by the checkpoint
+    until this node unpacks it) and handed to ``_Release``'s list, which
+    frees it after trip 2's backward, where trip n − 2's would have run
+    with the trips between still saved."""
+
+    @staticmethod
+    def forward(ctx, counter, held, target, trips, n_mark, n_carry,
+                *tensors):
+        carry = tensors[n_mark:n_mark + n_carry]
+        out = tensors[n_mark + n_carry:]
+        between, block = _stand_ins(counter, carry, out, trips, target)
+        ctx.save_for_backward(block[:0])
+        ctx.held, ctx.n_in = held, len(tensors)
+        return tuple(between)
+
+    @staticmethod
+    def backward(ctx, *_):
+        block = ctx.saved_tensors
+        if ctx.held is not None:
+            ctx.held.extend(block)
+        del block
+        return (None,) * (6 + ctx.n_in)
+
+
+def _stand_in_trips(counter: OpCounter, mark, carry, out, trips: int,
+                    target: int):
+    """(the ``trips`` folded trips' outputs, the block where no autograd
+    node holds it: to hold while trip n − 1 runs)."""
+    c_t = [t for t in tree_leaves(carry) if isinstance(t, torch.Tensor)]
+    o_leaves, o_spec = tree_flatten(out)
+    o_idx = [i for i, t in enumerate(o_leaves) if isinstance(t, torch.Tensor)]
+    o_t = [o_leaves[i] for i in o_idx]
+    hold = None
+    if torch.is_grad_enabled() and any(t.requires_grad for t in o_t):
+        # the mark ties _Release's node to this one; the gradients this
+        # node returns (to the mark, trip 2's carry and outputs) are None
+        marks, held = ((mark[0],), mark[1]) if mark else ((), None)
+        flat = _tuple(_Bridge.apply(counter, held, target, trips, len(marks),
+                                    len(c_t), *marks, *c_t, *o_t))
+    else:
+        with torch.no_grad():
+            flat, hold = _stand_ins(counter, c_t, o_t, trips, target)
+    between = []
+    for k in range(trips):
+        leaves = list(o_leaves)
+        for j, i in enumerate(o_idx):
+            leaves[i] = flat[k * len(o_idx) + j]
+        between.append(tree_unflatten(leaves, o_spec))
+    return between, hold
+
+
+def _tuple(res) -> tuple:
+    """A custom Function's result as a tuple (one output comes bare)."""
+    return (res,) if isinstance(res, torch.Tensor) else tuple(res)
 
 
 def summary(dot_flops, coll_bytes, coll_counts, sites) -> dict:

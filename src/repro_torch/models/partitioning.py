@@ -34,10 +34,10 @@ from typing import Any
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-#: the installed policy: one a process, not one a thread, because the
-#: autograd engine runs a CUDA backward (and the recompute of a
-#: checkpointed region) on a thread of its own
-_STATE = {"policy": None}
+#: the installed policy and loop folder: one a process, not one a
+#: thread, because the autograd engine runs a CUDA backward (and the
+#: recompute of a checkpointed region) on a thread of its own
+_STATE = {"policy": None, "folder": None}
 
 #: a free dimension's spec entry: keep whatever placement it has (the
 #: reference's ``P.UNCONSTRAINED``; DTensor has no such placement).
@@ -96,6 +96,34 @@ class apply_policy:
 
     def __exit__(self, *exc):
         set_policy(self.prev)
+
+
+def set_folder(folder) -> None:
+    """Install (or, with ``None``, remove) the object whose
+    ``fold(body, n)`` runs ``scan``'s loops: the dry run's op counter
+    (``launch.op_count.OpCounter(fold=True)``) while it counts."""
+    _STATE["folder"] = folder
+
+
+def scan(body, n: int):
+    """``carry = None; for i in range(n): carry, out = body(i, carry)``
+    -> (the last carry, the ``n`` outputs in order): the reference's
+    ``lax.scan`` over the microbatches, SSD and mLSTM chunks and sLSTM
+    tokens.  The first trip gets ``None`` and makes the initial carry.
+
+    Every trip runs, unless a folder is installed (``set_folder``) and
+    ``n`` ≥ 5: then the folder runs trips 0, 1, 2 and n − 1 and counts
+    trip 2 n − 3 times, for itself and the trips it skips (the
+    reference's ``hlo_parse`` counts a ``while`` body once and
+    multiplies it by its trip count)."""
+    folder = _STATE["folder"]
+    if folder is not None and n >= 5:
+        return folder.fold(body, n)
+    carry, outs = None, []
+    for i in range(n):
+        carry, out = body(i, carry)
+        outs.append(out)
+    return carry, outs
 
 
 def spec_of(pol: Policy, dims, shape, free: bool = False) -> tuple:
@@ -384,6 +412,17 @@ def split_heads(x, n: int, hd: int):
         x = constrain(x, ("batch", None, None))
     return constrain(x.reshape(x.shape[0], x.shape[1], n, hd), HEADS,
                      free=True)
+
+
+def merge_heads(x):
+    """(B, S, n, hd) -> (B, S, n·hd), the merged dim over "model" where
+    it divides it.  Where ``n`` heads do not divide the model axis, the
+    heads come whole and the product that follows (the mLSTM's output
+    gate) splits the merged dim over "model"; DTensor cannot split such
+    a gradient back into heads, so the merged dim is placed on "model"
+    here, where the backward gathers it whole before the split."""
+    b, s = x.shape[:2]
+    return constrain(x.reshape(b, s, -1), ("batch", None, "model"))
 
 
 def per_head(fn, q, k, v):

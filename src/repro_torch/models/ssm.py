@@ -4,8 +4,9 @@ of ``repro/models/ssm.py``.
 Chunked SSD (Dao & Gu 2024, minimal form): within a chunk of L tokens
 the decay-masked quadratic (L × L) form runs dense; across chunks only
 the (B, H, P, N) float32 state is carried.  The reference scans the
-chunks with ``lax.scan``; here a Python loop over the same chunks does
-the same arithmetic.  Single B/C group, no norm on dt, a conv kernel of
+chunks with ``lax.scan``; here ``partitioning.scan`` (a Python loop,
+which the dry run's op counter folds) does the same arithmetic over the
+same chunks.  Single B/C group, no norm on dt, a conv kernel of
 ``CONV_K`` (the reference's simplifications).
 
 Mixed dtypes: ``jnp.einsum`` promotes bfloat16 operands against float32
@@ -23,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.layers import RMSNorm, normal_init_, param
-from repro_torch.models.partitioning import constrain, local_shards
+from repro_torch.models.partitioning import constrain, local_shards, scan
 
 CONV_K = 4
 
@@ -108,9 +109,12 @@ def _ssd(xs, dt, bmat, cmat, a, d_skip, *, chunk: int):
     n = bmat.shape[-1]
     causal = torch.ones((chunk, chunk), dtype=torch.bool,
                         device=xs.device).tril()[None, :, :, None]
-    state = torch.zeros((b, h, hp, n), dtype=torch.float32, device=xs.device)
-    ys = []
-    for c0 in range(0, s, chunk):
+
+    def step(i, state):
+        if state is None:
+            state = torch.zeros((b, h, hp, n), dtype=torch.float32,
+                                device=xs.device)
+        c0 = i * chunk
         xc, dtc = xs[:, c0:c0 + chunk], dt[:, c0:c0 + chunk]
         bc, cc = bmat[:, c0:c0 + chunk], cmat[:, c0:c0 + chunk]
         xf, bf, cf = xc.float(), bc.float(), cc.float()
@@ -128,7 +132,9 @@ def _ssd(xs, dt, bmat, cmat, a, d_skip, *, chunk: int):
         rev = torch.exp(total - cum)                          # (B,L,H)
         state = state * torch.exp(total)[:, 0, :, None, None] + torch.einsum(
             "blhp,bln->bhpn", xf * (dtc * rev)[..., None], bf)
-        ys.append(y_intra + y_inter + d_skip[None, None, :, None] * xc)
+        return state, y_intra + y_inter + d_skip[None, None, :, None] * xc
+
+    state, ys = scan(step, s // chunk)
     return torch.cat(ys, dim=1), state
 
 

@@ -4,8 +4,9 @@ recurrent weights) — the port of ``repro/models/xlstm.py``.
 
 mLSTM runs chunkwise like the Mamba2 SSD path: the decay-masked
 quadratic form within a chunk, a carried (C, n, m) state across chunks
-(a Python loop over the reference's ``lax.scan`` steps).  sLSTM is a
-loop over time, one cell a token.  The reference's simplifications
+(``partitioning.scan``, a Python loop over the reference's ``lax.scan``
+steps, which the dry run's op counter folds).  sLSTM is such a loop
+over time, one cell a token.  The reference's simplifications
 stay: the forget gate through ``logsigmoid`` in both cells, per-chunk
 stabilisation for mLSTM (the exact stabilised recurrence in decode),
 projection factor 2 (mLSTM) and 1 (sLSTM).
@@ -24,7 +25,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.layers import RMSNorm, normal_init_, param
-from repro_torch.models.partitioning import local_shards, pointwise
+from repro_torch.models.partitioning import (
+    local_shards,
+    merge_heads,
+    pointwise,
+    scan,
+)
 
 #: the stabiliser ``m`` of an empty memory
 M_EMPTY = -1e30
@@ -96,9 +102,10 @@ def _mlstm_scan(q, k, v, li, lf, *, chunk: int):
     b, s, hn, hp = q.shape
     causal = torch.ones((chunk, chunk), dtype=torch.bool,
                         device=q.device).tril()[None, :, :, None]
-    c_st, n_st, m_st = mlstm_init_state(b, hn, hp, q.device)
-    hs = []
-    for c0 in range(0, s, chunk):
+
+    def step(i, carry):
+        c_st, n_st, m_st = carry or mlstm_init_state(b, hn, hp, q.device)
+        c0 = i * chunk
         qt, kt, vt = (t[:, c0:c0 + chunk] for t in (q, k, v))   # (B,L,H,P)
         lit, lft = li[:, c0:c0 + chunk], lf[:, c0:c0 + chunk]    # (B,L,H)
         qf, kf, vf = qt.float(), kt.float(), vt.float()
@@ -120,8 +127,7 @@ def _mlstm_scan(q, k, v, li, lf, *, chunk: int):
         sw = torch.einsum("blhp,bmhp->blmh", qt, kt) * w          # (B,L,L,H)
         num = num_inter + torch.einsum("blmh,bmhp->blhp", sw, vf)
         den = den_inter + sw.sum(dim=2)
-        hs.append(num / torch.maximum(den.abs(),
-                                      torch.exp(-m_new))[..., None])
+        h = num / torch.maximum(den.abs(), torch.exp(-m_new))[..., None]
         # the state update, stabilised at the chunk end's max
         m_out = total + torch.maximum(m_st, amax[:, -1, :])       # (B,H)
         carry_w = torch.exp(m_st + total - m_out)
@@ -130,8 +136,10 @@ def _mlstm_scan(q, k, v, li, lf, *, chunk: int):
             "bmhp,bmhq->bhpq", vf * in_w[..., None], kf)
         n_st = n_st * carry_w[..., None] + torch.einsum(
             "bmhp,bmh->bhp", kf, in_w)
-        m_st = m_out
-    return torch.cat(hs, dim=1), c_st, n_st, m_st
+        return (c_st, n_st, m_out), h
+
+    state, hs = scan(step, s // chunk)
+    return (torch.cat(hs, dim=1), *state)
 
 
 def mlstm_apply(p: MLSTM, x: torch.Tensor, *, chunk: int = 128):
@@ -148,8 +156,7 @@ def mlstm_apply(p: MLSTM, x: torch.Tensor, *, chunk: int = 128):
         (_QKV, ("batch", "model", None, None), ("batch", "model", None),
          ("batch", "model")),
         q, k, v, li, lf)
-    h = h.reshape(b, s, 2 * d)
-    y = p.norm(h.to(x.dtype) * o)
+    y = p.norm(merge_heads(h).to(x.dtype) * o)
     return y @ p.out, (c_st, n_st, m_st)
 
 
@@ -263,11 +270,13 @@ _ROWS = ("batch", None)            # (B, d): a row's state, heads whole
 def _slstm_scan(xg, r, fbias):
     """xg (B, S, 4d) float32 -> (h (B, S, d), the final c, n, h, m)."""
     b, s, d4 = xg.shape
-    state = slstm_init_state(b, d4 // 4, xg.device)
-    hs = []
-    for t in range(s):
-        state = _slstm_cell(r, fbias, xg[:, t], state)
-        hs.append(state[2])
+
+    def step(t, state):
+        state = _slstm_cell(r, fbias, xg[:, t],
+                            state or slstm_init_state(b, d4 // 4, xg.device))
+        return state, state[2]
+
+    state, hs = scan(step, s)
     return (torch.stack(hs, dim=1), *state)
 
 

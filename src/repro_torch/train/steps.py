@@ -22,7 +22,7 @@ from repro_torch.launch.mesh import axis_group
 from repro_torch.models import convert
 from repro_torch.models import decode as DEC
 from repro_torch.models import model as MDL
-from repro_torch.models.partitioning import constrain
+from repro_torch.models.partitioning import constrain, scan
 from repro_torch.optim import adamw
 from repro_torch.optim.compression import mean_in_rank_order, psum_compressed
 
@@ -56,12 +56,13 @@ def build_train_step(
                                      (i + 1) * (v.shape[0] // accum)],
                                    ("batch",) + (None,) * (v.ndim - 1))
                       for k, v in batch.items()} for i in range(accum)]
-            grads, ms = None, []
-            for mb in micro:
-                g, m = _grads(model, mb, q_chunk)
-                grads = ([gi.float() for gi in g] if grads is None else
-                         [a + gi.float() for a, gi in zip(grads, g)])
-                ms.append(m)
+
+            def step(i, grads):
+                g, m = _grads(model, micro[i], q_chunk)
+                return ([gi.float() for gi in g] if grads is None else
+                        [a + gi.float() for a, gi in zip(grads, g)]), m
+
+            grads, ms = scan(step, accum)
             grads = [g / accum for g in grads]
             metrics = {k: torch.stack([m[k] for m in ms]).mean()
                        for k in ms[0]}
