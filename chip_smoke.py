@@ -3689,8 +3689,9 @@ def run_dryrun(card: str) -> dict:
     """(a) the dry-run CLI on DRYRUN_CELLS and the roofline over their
     records; (b), (c) ``predict_rank`` of each of PREDICTIONS in a
     subprocess.  Fails on any failed cell, a geodesic cell that launched
-    no kernel, FLOPs that differ or a peak more than PREDICT_MEMORY_TOL
-    off."""
+    no kernel, a train cell whose gradients' bytes a device differ from
+    its masters', FLOPs that differ or a peak more than
+    PREDICT_MEMORY_TOL off."""
     import shutil
     import tempfile
 
@@ -3760,6 +3761,21 @@ def run_dryrun(card: str) -> dict:
             f"dominant {r['dominant']}, trace {r['trace_s']:.1f} s"
             + (f", kernel launches {r['launches']}" if "launches" in r
                else ""))
+    # every gradient reduced to its parameter's placements as the
+    # backward makes it: their local bytes are the masters'
+    unequal = []
+    for (arch, shape, mesh), r in records.items():
+        if not shape.startswith("train"):
+            continue
+        grad, master = r["grad_bytes_per_device"], r["master_bytes_per_device"]
+        log(f"dry run (a) {arch} x {shape} x {mesh}: gradients {grad} bytes "
+            f"a device against the masters' {master} "
+            f"({'equal' if grad == master else 'DIFFER'})")
+        if grad != master:
+            unequal.append((arch, shape, mesh, grad, master))
+    if unequal:
+        raise AssertionError(f"dry run (a): gradient bytes differ from the "
+                             f"masters': {unequal}")
     log("dry run (a) roofline (the H100's constants):\n" + roof.stdout)
 
     results, gaps = {}, {}

@@ -22,10 +22,15 @@ nothing is allocated), places the parameters as DTensors by
 ``sharding.param_specs`` on the production mesh, and runs one train,
 prefill or decode step under the activation policy
 (``models/partitioning.py``).  ``op_count.OpCounter`` records the
-rank's dot FLOPs, collectives and peak bytes.  The
-port needs no ``grad_shardings``: a DTensor parameter's gradient
-carries its placement (a pending sum over the batch axes), which the
-AdamW update reduces into the moments' placement.
+rank's dot FLOPs, collectives and peak bytes.  DTensor leaves a
+parameter's gradient a pending sum over the batch axes, whole along the
+dims the parameter shards over them; the train step reduces each to its
+parameter's placements as the backward makes it
+(``partitioning.reduce_grads_to_params``), where the reference's dry
+run passes its parameter shardings as ``grad_shardings``.  A train
+record's ``grad_bytes_per_device`` and ``master_bytes_per_device`` are
+the gradients' and the parameters' local bytes on the traced rank when
+AdamW starts.
 
 The step's loops are folded, as the reference's ``hlo_parse`` counts a
 ``lax.scan``'s ``while`` body once and multiplies it by its trip count:
@@ -83,7 +88,7 @@ from repro_torch.core.backend import resolve_device
 from repro_torch.launch import analytic
 from repro_torch.launch import sharding as SH
 from repro_torch.launch.mesh import batch_axes, make_host_mesh
-from repro_torch.launch.op_count import OpCounter, extrapolate
+from repro_torch.launch.op_count import OpCounter, extrapolate, local_bytes
 from repro_torch.models import partitioning as PT
 from repro_torch.models.partitioning import axis_sizes
 
@@ -221,9 +226,12 @@ def _place(model: nn.Module, specs: dict, mesh) -> None:
     distribute_module(model, mesh, shard)
 
 
-def build_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, device):
+def build_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, device,
+               observe=None):
     """(step fn, its arguments, the tensors they hold) on ``mesh``;
-    called under ``FakeTensorMode``.  Decode: bfloat16 weights, the
+    called under ``FakeTensorMode``.  A train step calls
+    ``observe(params, grads)`` before AdamW's update
+    (``build_train_step``).  Decode: bfloat16 weights, the
     reference's ``attn_tp`` rule (attention TP only where the KV heads
     divide the model axis)."""
     from repro_torch.models import decode as DEC
@@ -253,7 +261,8 @@ def build_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, device):
         held += list(opt["m"].values()) + list(opt["v"].values())
         fn = STEPS.build_train_step(
             cfg, opt_cfg, q_chunk=_q_chunk(shape),
-            accum=choose_accum(cfg, shape, mesh), device=device)
+            accum=choose_accum(cfg, shape, mesh), device=device,
+            observe=observe)
         return fn, (model, opt, batch), held
 
     if shape.step == "prefill":
@@ -282,16 +291,17 @@ def build_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, device):
 
 
 def trace_step(cfg: ModelConfig, shape: ShapeSpec, mesh, device, *,
-               fold: bool = True):
+               fold: bool = True, observe=None):
     """(the op counter, the argument bytes) of one step of the cell on
     ``mesh`` (a ``DeviceMesh`` of the process's default group), traced
-    under ``FakeTensorMode`` and the activation policy."""
+    under ``FakeTensorMode`` and the activation policy.  A train step
+    calls ``observe(params, grads)`` before AdamW's update."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed.tensor.experimental import implicit_replication
 
     policy = PT.Policy(mesh, batch_axes(mesh))
     with FakeTensorMode(), implicit_replication(), PT.apply_policy(policy):
-        fn, args, held = build_cell(cfg, shape, mesh, device)
+        fn, args, held = build_cell(cfg, shape, mesh, device, observe)
         counter = OpCounter(fold=fold)
         counter.track(held)
         arg_bytes = counter.live
@@ -323,7 +333,14 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False, *,
             mesh = effective_mesh(cfg, mesh)
         sizes = axis_sizes(mesh)
         t0 = time.perf_counter()
-        counter, arg_bytes = trace_step(cfg, shape, mesh, device, fold=fold)
+        handed: dict = {}
+
+        def observe(params, grads):
+            handed.update(grad_bytes_per_device=local_bytes(grads.values()),
+                          master_bytes_per_device=local_bytes(params.values()))
+
+        counter, arg_bytes = trace_step(cfg, shape, mesh, device, fold=fold,
+                                        observe=observe)
         peak = counter.peak
         trace_s = time.perf_counter() - t0
         accum = choose_accum(cfg, shape, mesh)
@@ -355,6 +372,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False, *,
         "memory_s": terms.memory_s,
         "collective_s": terms.collective_s,
         "dominant": terms.dominant,
+        **handed,
     }
 
 

@@ -76,6 +76,9 @@ from torch.utils.weak import WeakIdKeyDictionary
 
 _aten = torch.ops.aten
 
+#: the sequence number of an autograd node that has none (AccumulateGrad)
+_NO_SEQUENCE_NR = 2 ** 64 - 1
+
 
 def _mm(a, b, *_):
     return 2.0 * a.shape[0] * a.shape[1] * b.shape[1]
@@ -152,8 +155,14 @@ def _block(nbytes: int) -> int:
     return -(-nbytes // 512) * 512
 
 
-def _local(t: torch.Tensor) -> torch.Tensor:
+def local_tensor(t: torch.Tensor) -> torch.Tensor:
+    """This rank's part of ``t``: a DTensor's local tensor, else ``t``."""
     return t._local_tensor if isinstance(t, DTensor) else t
+
+
+def local_bytes(tensors) -> int:
+    """The bytes that ``tensors`` hold on this rank."""
+    return sum(local_tensor(t).nbytes for t in tensors)
 
 
 def _describe(x) -> str:
@@ -234,7 +243,7 @@ class OpCounter(TorchDispatchMode):
             if isinstance(x, torch.nn.Module):
                 self.track(*x.parameters(), *x.buffers())
             elif isinstance(x, torch.Tensor):
-                self._hold(_local(x))
+                self._hold(local_tensor(x))
             elif isinstance(x, (list, tuple, dict)):
                 self.track(*tree_leaves(x))
 
@@ -330,7 +339,12 @@ class OpCounter(TorchDispatchMode):
             inner = max(((lo, w) for lo, hi, w in self._ranges
                          if lo <= seq and (hi is None or seq < hi)),
                         default=(0, 1.0))
-            w = self._node_weights[seq] = inner[1]
+            w = inner[1]
+            # a leaf's gradient hook runs in its AccumulateGrad node,
+            # which has no sequence number of its own (the largest):
+            # it belongs to the trips open now, so it is not cached
+            if seq != _NO_SEQUENCE_NR:
+                self._node_weights[seq] = w
         return w
 
     def _weight(self) -> float:
@@ -390,8 +404,8 @@ def _stand_ins(counter: OpCounter, carry, out, trips: int, target: int):
     when their list goes.  The block holds the rest of what the folded
     trips would have left live.  Each storage is cut into the trips'
     tensors by one ``unbind``, however many trips there are."""
-    carried = {_local(t).untyped_storage()._cdata for t in carry}
-    shared = [_local(t).untyped_storage()._cdata in carried for t in out]
+    carried = {local_tensor(t).untyped_storage()._cdata for t in carry}
+    shared = [local_tensor(t).untyped_storage()._cdata in carried for t in out]
     sizes = [_block(t.numel() * t.element_size()) for t in out]
     leaves = [None if tied else _fresh(t, trips, n)
               for t, n, tied in zip(out, sizes, shared)]

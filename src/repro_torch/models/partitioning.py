@@ -249,6 +249,25 @@ def last_mean(x):
     return s / x.shape[-1]
 
 
+def _grad_placements(in_p, args) -> tuple:
+    """The placements of the local gradients that ``local_map``'s
+    backward hands each argument (its ``in_grad_placements``).  Where an
+    argument is replicated over a mesh dim that splits another argument,
+    each rank along it computes with other data: its gradient there is a
+    pending sum, not a replica (a vocab-split table's rows gathered for
+    tokens split over the batch axes, an SSD's per-head ``A`` beside rows
+    split over them).  An integer argument has no gradient and keeps its
+    placements."""
+    split = {i for p in in_p if p is not None
+             for i, q in enumerate(p) if isinstance(q, Shard)}
+    return tuple(
+        None if p is None else
+        tuple(p) if not (torch.is_tensor(a) and a.is_floating_point()) else
+        tuple(Partial() if isinstance(q, Replicate) and i in split else q
+              for i, q in enumerate(p))
+        for p, a in zip(in_p, args))
+
+
 def local_shards(fn, in_dims, out_dims, *args):
     """``fn(*args)`` on each rank's shard (``local_map``) for a function
     that is independent along its logical dims — attention, the SSD and
@@ -297,6 +316,7 @@ def local_shards(fn, in_dims, out_dims, *args):
     single = not out_dims or not isinstance(out_dims[0], tuple)
     out_p = place(out_dims) if single else tuple(place(d) for d in out_dims)
     return local_map(fn, out_placements=out_p, in_placements=tuple(in_p),
+                     in_grad_placements=_grad_placements(in_p, local),
                      device_mesh=mesh)(*local)
 
 
@@ -387,8 +407,9 @@ def vocab_take(src, index, dim: int, take):
         return torch.where(hit, out, torch.zeros((), dtype=out.dtype,
                                                  device=out.device))
 
-    return local_map(local, out_placements=out_p,
-                     in_placements=(tuple(src.placements), tuple(idx_p)),
+    in_p = (tuple(src.placements), tuple(idx_p))
+    return local_map(local, out_placements=out_p, in_placements=in_p,
+                     in_grad_placements=_grad_placements(in_p, (src, index)),
                      device_mesh=mesh)(src, index)
 
 
@@ -485,3 +506,64 @@ def constrain_tree(tree, dims_fn):
     """Constrain every tensor leaf; dims_fn(leaf) -> dims tuple."""
     return torch.utils._pytree.tree_map_only(
         torch.Tensor, lambda x: constrain(x, dims_fn(x)), tree)
+
+
+# ---------------------------------------------------------------------------
+# gradients on their parameters' placements
+# ---------------------------------------------------------------------------
+
+def _reduce_placed(g: DTensor, want: tuple) -> DTensor:
+    """``g`` on ``want`` by the collectives that move the fewest bytes:
+    first every step that shrinks the local tensor (a pending sum
+    reduce-scattered into a ``Shard``, a replicated dim split locally),
+    then the pending sums that ``want`` replicates (all-reduced at that
+    smaller size), last the gathers (a ``Shard`` that ``want`` places
+    otherwise).  DTensor's own order gathers first where one call holds
+    both."""
+    have = tuple(g.placements)
+    if have == want:
+        return g
+    mesh = g.device_mesh
+    shrink = tuple(w if isinstance(w, Shard) and not isinstance(h, Shard)
+                   else h for h, w in zip(have, want))
+    if shrink != have:
+        g = g.redistribute(mesh, shrink)
+    reduced = tuple(w if h.is_partial() else h
+                    for h, w in zip(g.placements, want))
+    if reduced != tuple(g.placements):
+        g = g.redistribute(mesh, reduced)
+    return g.redistribute(mesh, want) if tuple(g.placements) != want else g
+
+
+class reduce_grads_to_params:
+    """Context manager: while it is open, each DTensor parameter of
+    ``params`` has its gradient reduced to its placements as the
+    backward makes it, by a hook on the leaf — the reference's
+    ``grad_shardings``, where XLA keeps each gradient sharded as its
+    parameter.  DTensor leaves a parameter's gradient a pending sum over
+    the batch axes, whole along the dims that the parameter shards over
+    them; reduced only when the optimizer reads it, every such gradient
+    would be live at once.  The hooks are removed on exit, also when an
+    exception is raised.
+
+    Without a policy, or for a plain tensor, it does nothing, as
+    ``constrain`` does."""
+
+    def __init__(self, params):
+        self.params = list(params)
+        self.handles: list = []
+
+    def __enter__(self):
+        if get_policy() is None:
+            return self
+        for p in self.params:
+            if isinstance(p, DTensor) and p.requires_grad:
+                self.handles.append(p.register_hook(
+                    lambda g, want=tuple(p.placements): _reduce_placed(g, want)
+                    if isinstance(g, DTensor) else g))
+        return self
+
+    def __exit__(self, *exc):
+        for h in self.handles:
+            h.remove()
+        self.handles.clear()

@@ -22,7 +22,8 @@ from repro_torch.launch.mesh import axis_group
 from repro_torch.models import convert
 from repro_torch.models import decode as DEC
 from repro_torch.models import model as MDL
-from repro_torch.models.partitioning import constrain, scan
+from repro_torch.models.partitioning import (
+    constrain, reduce_grads_to_params, scan)
 from repro_torch.optim import adamw
 from repro_torch.optim.compression import mean_in_rank_order, psum_compressed
 
@@ -34,6 +35,7 @@ def build_train_step(
     q_chunk: int = 1024,
     accum: int = 1,
     device=None,
+    observe: Callable | None = None,
 ) -> Callable:
     """(model, opt_state, batch) -> (model, opt_state, metrics): the
     model's parameters and the moments updated in place, ``metrics`` the
@@ -43,7 +45,14 @@ def build_train_step(
     NumPy arrays; they go to ``device`` (``None`` is the GPU and raises
     without one), where the model must live.  ``accum`` > 1 splits the
     batch into that many microbatches, accumulates their gradients in
-    float32, divides by ``accum`` and averages the metrics."""
+    float32, divides by ``accum`` and averages the metrics.
+
+    Under an activation policy (``partitioning``) each gradient is
+    reduced to its parameter's placements as the backward makes it
+    (``partitioning.reduce_grads_to_params``, the reference's
+    ``grad_shardings``); the float32 microbatch sum and ``/ accum`` keep
+    those placements.  ``observe(params, grads)``, where given, is called
+    with the two dicts by name that AdamW is about to be handed."""
     device = resolve_device(device)
 
     def train_step(model, opt_state, batch):
@@ -66,10 +75,12 @@ def build_train_step(
             grads = [g / accum for g in grads]
             metrics = {k: torch.stack([m[k] for m in ms]).mean()
                        for k in ms[0]}
-        names = [n for n, _ in model.named_parameters()]
+        params = dict(model.named_parameters())
+        grads = dict(zip(params, grads))
+        if observe is not None:
+            observe(params, grads)
         _, opt_state, opt_metrics = adamw.apply_updates(
-            opt_cfg, dict(model.named_parameters()), dict(zip(names, grads)),
-            opt_state)
+            opt_cfg, params, grads, opt_state)
         return model, opt_state, {**metrics, **opt_metrics}
 
     return train_step
@@ -77,10 +88,13 @@ def build_train_step(
 
 def _grads(model, batch: dict, q_chunk: int) -> tuple:
     """Every parameter's gradient of ``loss_fn`` (zeros where a
-    parameter is unused) and the metrics."""
+    parameter is unused) and the metrics.  Under a policy each gradient
+    is reduced to its parameter's placements as the backward makes it
+    (``partitioning.reduce_grads_to_params``)."""
     params = list(model.parameters())
-    loss, metrics = MDL.loss_fn(model, batch, q_chunk=q_chunk)
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    with reduce_grads_to_params(params):
+        loss, metrics = MDL.loss_fn(model, batch, q_chunk=q_chunk)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(params, grads)]
     return grads, metrics
