@@ -3615,6 +3615,18 @@ DRYRUN_TIMEOUT_S = 600
 #: 24), one step (the next one's loss is NaN: the first-loss check)
 PREDICTIONS = (("gemma-2b", 8, 128, 2, None), ("xlstm-350m", 8, 640, 1, 4))
 PREDICT_MEMORY_TOL = 0.10
+#: the reference's dot FLOPs a device for (a)'s cells, from its CPU dry
+#: run (``python -m repro.launch.dryrun --arch gemma-2b --shape train_4k``,
+#: jax 0.9.0; PERF.md §6's train_4k sweep), and how far above it (a)'s
+#: record may lie (below it down to the model's own FLOPs a rank: XLA
+#: runs heads that do not divide "model" twice over, the port splits
+#: the queries)
+REFERENCE_DOT_FLOPS = {("gemma-2b", "train_4k", "16x16"): 96113080139776.0}
+REFERENCE_DOT_FLOPS_TOL = 1.10
+#: the CPU dry run's peak bytes a device of that cell before each
+#: ``constrain`` pinned its gradient (torch 2.13; PERF.md §6), which the
+#: card's record is set beside
+CPU_PEAK_BEFORE = {("gemma-2b", "train_4k", "16x16"): 16_525_683_712}
 
 
 def _src_env() -> dict:
@@ -3690,7 +3702,9 @@ def run_dryrun(card: str) -> dict:
     records; (b), (c) ``predict_rank`` of each of PREDICTIONS in a
     subprocess.  Fails on any failed cell, a geodesic cell that launched
     no kernel, a train cell whose gradients' bytes a device differ from
-    its masters', FLOPs that differ or a peak more than
+    its masters', a cell of REFERENCE_DOT_FLOPS with more than
+    REFERENCE_DOT_FLOPS_TOL times the reference's dot FLOPs (or fewer
+    than the model's own a rank), FLOPs that differ or a peak more than
     PREDICT_MEMORY_TOL off."""
     import shutil
     import tempfile
@@ -3776,6 +3790,21 @@ def run_dryrun(card: str) -> dict:
     if unequal:
         raise AssertionError(f"dry run (a): gradient bytes differ from the "
                              f"masters': {unequal}")
+    # the plan against the reference's: no more dot FLOPs than the factor
+    # allows, no fewer than the model's own
+    for key, ref in REFERENCE_DOT_FLOPS.items():
+        r = records[key]
+        flops = r["hlo_dot_flops_per_device"]
+        least = r["model_flops"] / r["chips"]
+        log(f"dry run (a) {' x '.join(key)}: dot FLOPs a device {flops:.6g} "
+            f"against the reference's {ref:.6g} ({flops / ref:.4f}x, bound "
+            f"{REFERENCE_DOT_FLOPS_TOL}x) and the model's {least:.6g} a rank; "
+            f"peak {r['bytes_per_device']} bytes against the CPU's "
+            f"{CPU_PEAK_BEFORE[key]} before the gradient pins; torch "
+            f"{torch.__version__} ({card})")
+        if not least <= flops <= REFERENCE_DOT_FLOPS_TOL * ref:
+            raise AssertionError(f"dry run (a) {key}: dot FLOPs {flops:.6g}, "
+                                 f"{flops / ref:.4f} times the reference's")
     log("dry run (a) roofline (the H100's constants):\n" + roof.stdout)
 
     results, gaps = {}, {}

@@ -290,6 +290,34 @@ def build_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, device,
     return fn, (model, cache, batch["tokens"]), held
 
 
+@contextlib.contextmanager
+def _alltoall_on_any_device():
+    """While open, DTensor moves a split from one dim to another by its
+    all-to-all op on a CPU mesh too, as it does on the card: for a CPU
+    mesh it gathers the whole tensor and keeps its chunk (gloo has no
+    all-to-all), which the fake group need not do.  Under the fake mode
+    the op runs its shape function; the counter counts it."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import placement_types
+
+    orig = getattr(placement_types, "shard_dim_alltoall", None)
+    if orig is None or not hasattr(funcol, "_group_or_group_name"):
+        yield                       # a torch that moves splits otherwise
+        return
+
+    def alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
+        group = funcol._group_or_group_name(
+            funcol._resolve_group((mesh, mesh_dim)))
+        return torch.ops._dtensor.shard_dim_alltoall(input, gather_dim,
+                                                     shard_dim, group)
+
+    placement_types.shard_dim_alltoall = alltoall
+    try:
+        yield
+    finally:
+        placement_types.shard_dim_alltoall = orig
+
+
 def trace_step(cfg: ModelConfig, shape: ShapeSpec, mesh, device, *,
                fold: bool = True, observe=None):
     """(the op counter, the argument bytes) of one step of the cell on
@@ -300,7 +328,8 @@ def trace_step(cfg: ModelConfig, shape: ShapeSpec, mesh, device, *,
     from torch.distributed.tensor.experimental import implicit_replication
 
     policy = PT.Policy(mesh, batch_axes(mesh))
-    with FakeTensorMode(), implicit_replication(), PT.apply_policy(policy):
+    with FakeTensorMode(), implicit_replication(), PT.apply_policy(policy), \
+            _alltoall_on_any_device():
         fn, args, held = build_cell(cfg, shape, mesh, device, observe)
         counter = OpCounter(fold=fold)
         counter.track(held)

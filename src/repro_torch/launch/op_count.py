@@ -98,6 +98,13 @@ DOTS = {
 }
 
 
+#: DTensor's move of a split from one dim to another (its own op), or
+#: None in a torch without it.  Its fake result is a view into a buffer
+#: as large as the group's whole input (a chunk of everything gathered):
+#: the counter keeps a copy of the result's own size in its place
+_ALLTOALL = getattr(torch.ops._dtensor, "shard_dim_alltoall", None)
+
+
 def _kinds() -> dict:
     """op overload packet -> (kind, where its result is: "out" or the
     first argument)."""
@@ -112,6 +119,8 @@ def _kinds() -> dict:
                        ("all_to_all_single", "all-to-all")):
         if hasattr(fn, name):
             kinds[getattr(fn, name)] = (kind, "out")
+    if _ALLTOALL is not None:
+        kinds[_ALLTOALL] = ("all-to-all", "out")
     auto = getattr(torch.ops, "_c10d_functional_autograd", None)
     for name, kind in (("all_reduce", "all-reduce"),
                        ("all_gather_into_tensor", "all-gather"),
@@ -370,12 +379,17 @@ class OpCounter(TorchDispatchMode):
         out = func(*args, **kwargs)
         if _PROPAGATING[0] or active_fake_mode() is not self._fake:
             return out
+        if func._overloadpacket is _ALLTOALL and \
+                out.untyped_storage().nbytes() > out.nbytes:
+            out = out.clone()       # the real collective's own buffer
         for t in tree_leaves(out):
             if isinstance(t, torch.Tensor):
                 self._hold(t)
         packet = func._overloadpacket
         if packet in DOTS:
-            self.dot_flops += DOTS[packet](*args) * self._weight()
+            flops = DOTS[packet](*args) * self._weight()
+            self.dot_flops += flops
+            self._on_dot(packet, args, flops)
         elif packet in self._kinds:
             kind, where = self._kinds[packet]
             result = out if where == "out" else args[0]
@@ -387,6 +401,10 @@ class OpCounter(TorchDispatchMode):
             site[0] += w
             site[1] += payload * w
         return out
+
+    def _on_dot(self, packet, args, flops: float) -> None:
+        """Called with each matrix product and its weighted FLOPs (a
+        hook for ``launch.trace_profile --dots``)."""
 
     def result(self) -> dict:
         """Per-device totals: ``dot_flops``, ``collective_bytes`` and

@@ -3,7 +3,7 @@ bytes at its peak — a diagnostic of ``launch.dryrun`` itself.
 
     PYTHONPATH=src python -m repro_torch.launch.trace_profile \\
         --arch zamba2-7b --shape train_4k --seq-len 512 --device cpu \\
-        [--no-fold] [--peak] [--mesh 16x16]
+        [--no-fold] [--peak] [--dots] [--mesh 16x16] [--reduced]
 
 Prints one JSON line: the cell's record figures, the trace's wall
 seconds inside each region (inclusive timers around the microbatch
@@ -13,6 +13,14 @@ and backward, AdamW, and DTensor's sharding propagation), and with
 ``--peak`` the live bytes at the peak by the op (and autograd node)
 that made each storage, and by op and shape.  The regions nest (the
 scans run inside the microbatches), so their seconds do not add up.
+
+``--dots`` adds the rank's dot FLOPs by product: the op, its local
+shapes, the model-code frame that issued it (for a product of
+autograd's own backward, the frame whose forward op made the node,
+which anomaly mode records), and whether it ran in the forward, the
+backward or a checkpoint's recompute.  The counter's fold weights are
+applied, so ``dots_total`` equals the record's
+``hlo_dot_flops_per_device``.
 """
 from __future__ import annotations
 
@@ -20,6 +28,9 @@ import argparse
 import collections
 import functools
 import json
+import os
+import re
+import sys
 import time
 import weakref
 
@@ -65,12 +76,12 @@ def _timers(regions: dict) -> None:
         setattr(owner, attr, timed(name, getattr(owner, attr)))
 
 
-def _peak_counter():
-    """An ``OpCounter`` that also keeps, at its peak, which op made each
-    live storage."""
+def _peak_counter(base):
+    """An ``OpCounter`` (``base``) that also keeps, at its peak, which op
+    made each live storage."""
     from repro_torch.launch import op_count
 
-    class PeakCounter(op_count.OpCounter):
+    class PeakCounter(base):
         def __init__(self, fold: bool = False):
             super().__init__(fold=fold)
             self.made: dict = {}
@@ -103,6 +114,70 @@ def _peak_counter():
     return PeakCounter
 
 
+#: the model code's frames: a product is told by the innermost of them
+_MODEL_CODE = re.compile(
+    r"repro_torch[/\\](models|train)[/\\](?!partitioning)")
+_STACK_LINE = re.compile(r'File "([^"]+)", line (\d+), in (\S+)')
+
+
+def _frame_here():
+    """(the innermost model-code frame on the Python stack, or None;
+    whether a checkpoint's recompute is on the stack)."""
+    f, found, recompute = sys._getframe(2), None, False
+    while f is not None:
+        name = f.f_code.co_filename
+        if found is None and _MODEL_CODE.search(name):
+            found = _where(name, f.f_lineno, f.f_code.co_name)
+        recompute |= name.endswith(os.path.join("utils", "checkpoint.py"))
+        f = f.f_back
+    return found, recompute
+
+
+def _where(path: str, line: int, func: str) -> str:
+    cut = path.replace("\\", "/").rsplit("/src/", 1)[-1]
+    return f"{cut}:{line} {func}"
+
+
+def _node_frame(node) -> str:
+    """The model-code frame that made autograd ``node`` (anomaly mode's
+    record of its forward stack), else the node's name."""
+    for line in reversed(node.metadata.get("traceback_", [])):
+        m = _STACK_LINE.search(line)
+        if m and _MODEL_CODE.search(m.group(1)):
+            return (f"{_where(m.group(1), int(m.group(2)), m.group(3))} "
+                    f"({node.name()})")
+    return node.name()
+
+
+def _dots_counter(base):
+    """An ``OpCounter`` (``base``) that also sums its weighted dot FLOPs
+    by (phase, op, local shapes, model-code frame)."""
+
+    class DotsCounter(base):
+        def __init__(self, fold: bool = False):
+            super().__init__(fold=fold)
+            self.by_dot: collections.Counter = collections.Counter()
+
+        def _on_dot(self, packet, args, flops):
+            super()._on_dot(packet, args, flops)
+            where, recompute = _frame_here()
+            node = torch._C._current_autograd_node()
+            phase = ("forward" if node is None else
+                     "recompute" if recompute else "backward")
+            # autograd's own backward runs under the frame that called
+            # it (the train step's), not under the model code
+            if node is not None and phase == "backward" and (
+                    where is None or "/models/" not in where):
+                where = _node_frame(node)
+            shapes = " x ".join(
+                f"{str(a.dtype)[6:]}{list(a.shape)}" for a in args
+                if isinstance(a, torch.Tensor))
+            self.by_dot[(phase, str(packet).replace("aten.", ""), shapes,
+                         where or "?")] += flops
+
+    return DotsCounter
+
+
 def main(argv=None) -> int:
     from repro_torch.configs.shapes import SHAPES, ShapeSpec
     from repro_torch.launch import dryrun
@@ -119,13 +194,24 @@ def main(argv=None) -> int:
                     help="run every trip of the folded loops")
     ap.add_argument("--peak", action="store_true",
                     help="what holds the bytes at the peak")
+    ap.add_argument("--dots", action="store_true",
+                    help="dot FLOPs by product, shapes, frame and phase")
+    ap.add_argument("--top", type=int, default=40,
+                    help="rows of --dots and --peak's tables")
+    ap.add_argument("--reduced", action="store_true",
+                    help="the architecture's reduced configuration")
     args = ap.parse_args(argv)
 
     regions: dict = {}
     _timers(regions)
     kept: dict = {}
+    counter_cls = dryrun.OpCounter
     if args.peak:
-        counter_cls = _peak_counter()
+        counter_cls = _peak_counter(counter_cls)
+    if args.dots:
+        counter_cls = _dots_counter(counter_cls)
+        torch.autograd.set_detect_anomaly(True, check_nan=False)
+    if counter_cls is not dryrun.OpCounter:
         trace = dryrun.trace_step
 
         def trace_step(*a, **k):
@@ -140,7 +226,7 @@ def main(argv=None) -> int:
     r = dryrun.run_cell(args.arch, args.shape, args.multi_pod,
                         device=args.device, shape=shape,
                         mesh_shape=dryrun._dims(args.mesh),
-                        fold=not args.no_fold)
+                        reduced=args.reduced, fold=not args.no_fold)
     out = {k: r[k] for k in ("arch", "shape", "mesh", "accum", "trace_s",
                              "bytes_per_device", "arg_bytes",
                              "hlo_dot_flops_per_device",
@@ -156,8 +242,14 @@ def main(argv=None) -> int:
             by_op[f"{made_by} @ {node}"] += nbytes
             by_shape[f"{made_by} {desc}"] += nbytes
         out["peak"] = {"at": f"{op} @ {where}",
-                       "by_op": by_op.most_common(12),
-                       "by_shape": by_shape.most_common(12)}
+                       "by_op": by_op.most_common(args.top),
+                       "by_shape": by_shape.most_common(args.top)}
+    if args.dots:
+        by_dot = kept["counter"].by_dot
+        total = sum(by_dot.values())
+        out["dots_total"] = total
+        out["dots"] = [[flops, flops / total if total else 0.0, *key]
+                       for key, flops in by_dot.most_common(args.top)]
     print(json.dumps(out))
     return 0
 

@@ -138,12 +138,35 @@ def flash_tiles(nq: int, nk: int, causal: bool,
     return pairs
 
 
+def tiles_at(q0: int, nq: int, qc: int, nk: int, kc: int, causal: bool,
+             window: int | None) -> list[tuple[int, int, int]]:
+    """``flash_tiles`` for query blocks of ``qc`` rows whose first row
+    sits at position ``q0`` (one rank's block of a sequence split over
+    "model"), against kv blocks of ``kc`` from position 0: every
+    (q-block, kv-block, 1) whose mask can hold an unmasked entry."""
+    pairs = []
+    for qi in range(nq):
+        first = q0 + qi * qc
+        last = first + qc - 1
+        pairs += [(qi, ki, 1) for ki in range(nk)
+                  if (not causal or ki * kc <= last)
+                  and (window is None or (ki + 1) * kc - 1 > first - window)]
+    return pairs
+
+
 class _FlashCfg(NamedTuple):
     causal: bool
     window: int | None
     q_chunk: int
     kv_chunk: int
     sk0: int            # unpadded kv length (padding mask)
+    q0: int = 0         # the first query's position
+
+    def tiles(self, nq: int, nk: int) -> list[tuple[int, int, int]]:
+        if self.q0 == 0 and self.q_chunk == self.kv_chunk:
+            return flash_tiles(nq, nk, self.causal, self.window)
+        return tiles_at(self.q0, nq, self.q_chunk, nk, self.kv_chunk,
+                        self.causal, self.window)
 
 
 def _flash_fwd(cfgt: _FlashCfg, q, k, v, want_lse: bool):
@@ -163,10 +186,11 @@ def _flash_fwd(cfgt: _FlashCfg, q, k, v, want_lse: bool):
     acc = torch.zeros((nq, b, kv_h, g, qc, hd), device=dev)
     qrange = torch.arange(qc, device=dev)
     krange = torch.arange(kc, device=dev)
-    for qi, ki, valid in flash_tiles(nq, nk, cfgt.causal, cfgt.window):
+    for qi, ki, valid in cfgt.tiles(nq, nk):
         kt = k[:, ki * kc:(ki + 1) * kc]
         vt = v[:, ki * kc:(ki + 1) * kc]
-        bm, bl, bpv = _block_attend(qb[:, qi], kt, vt, qi * qc + qrange,
+        bm, bl, bpv = _block_attend(qb[:, qi], kt, vt,
+                                    cfgt.q0 + qi * qc + qrange,
                                     ki * kc + krange, scale, cfgt.causal,
                                     cfgt.window, cfgt.sk0)
         if not valid:
@@ -207,15 +231,15 @@ def _flash_bwd(cfgt: _FlashCfg, q, k, v, out, lse, dout):
     dv = torch.zeros(v.shape, device=dev)
     qrange = torch.arange(qc, device=dev)
     krange = torch.arange(kc, device=dev)
-    for qi, ki, valid in flash_tiles(nq, nk, cfgt.causal, cfgt.window):
+    for qi, ki, valid in cfgt.tiles(nq, nk):
         if not valid:
             continue
         qt, dot, dlt = qb[:, qi], dob[:, qi], delta[:, qi]
         kt = k[:, ki * kc:(ki + 1) * kc]
         vt = v[:, ki * kc:(ki + 1) * kc]
         s = torch.einsum("bqkgd,bskd->bkgqs", qt, kt).float() * scale
-        mask = _tile_mask(qi * qc + qrange, ki * kc + krange, cfgt.causal,
-                          cfgt.window, cfgt.sk0)
+        mask = _tile_mask(cfgt.q0 + qi * qc + qrange, ki * kc + krange,
+                          cfgt.causal, cfgt.window, cfgt.sk0)
         p = torch.where(mask, torch.exp(s - lse[qi][..., None]), 0.0)
         # dv += pᵀ dout; dp = dout vᵀ; ds = p (dp − delta)
         dv[:, ki * kc:(ki + 1) * kc] += torch.einsum(
@@ -258,8 +282,11 @@ def flash_attention(
     window: int | None = None,
     q_chunk: int = 1024,
     kv_chunk: int = 1024,
+    merged: bool = False,
 ) -> torch.Tensor:
-    """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) -> (B, Sq, H, hd).
+    """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) -> (B, Sq, H, hd), or with
+    ``merged`` (B, Sq, H·hd) (the merged dim placed on "model" under a
+    policy, as the reference constrains it before ``wo``).
 
     Query head ``h`` attends with KV head ``h // (H // KV)``.  A sliding
     window needs ``window <= kv_chunk == q_chunk`` (``ValueError``
@@ -267,23 +294,28 @@ def flash_attention(
     gradient the loop runs inside ``_FlashAttention`` (memory O(S·chunk)
     in both passes); otherwise (serving, under ``no_grad``) it keeps no
     log-sum-exp.  On DTensors under a policy it runs on each rank's
-    shard (``partitioning.per_head``): the batch and heads placed as the
-    reference constrains its carries, the tile loop on plain tensors."""
-    return PT.per_head(functools.partial(
-        _flash, causal=causal, window=window, q_chunk=q_chunk,
-        kv_chunk=kv_chunk), q, k, v)
+    shard (``partitioning.per_head``, or ``partitioning.attend_merged``
+    with ``merged``): the batch and heads placed as the reference
+    constrains its carries, the tile loop on plain tensors."""
+    qc, kc = min(q_chunk, q.shape[1]), min(kv_chunk, k.shape[1])
+    if window is not None and not (window <= kc and qc == kc):
+        raise ValueError(
+            f"band path needs window <= kv_chunk == q_chunk, got window="
+            f"{window}, kv_chunk={kc}, q_chunk={qc}")
+    fn = functools.partial(_flash, causal=causal, window=window,
+                           q_chunk=q_chunk, kv_chunk=kv_chunk)
+    if merged:
+        return PT.attend_merged(fn, q, k, v)
+    return PT.per_head(fn, q, k, v)
 
 
-def _flash(q, k, v, *, causal, window, q_chunk, kv_chunk):
-    """``flash_attention`` on plain tensors (or one rank's shards)."""
+def _flash(q, k, v, *, causal, window, q_chunk, kv_chunk, q_start=0):
+    """``flash_attention`` on plain tensors (or one rank's shards):
+    queries at positions ``q_start`` onwards (a block of a sequence
+    split over "model"), keys at 0 onwards."""
     sq0, sk0 = q.shape[1], k.shape[1]
     q_chunk = min(q_chunk, sq0)
     kv_chunk = min(kv_chunk, sk0)
-    if window is not None and not (window <= kv_chunk and
-                                   q_chunk == kv_chunk):
-        raise ValueError(
-            f"band path needs window <= kv_chunk == q_chunk, got window="
-            f"{window}, kv_chunk={kv_chunk}, q_chunk={q_chunk}")
     # pad to chunk multiples; padded keys are masked via the kv length,
     # padded query rows are sliced off the output
     sq = math.ceil(sq0 / q_chunk) * q_chunk
@@ -293,7 +325,7 @@ def _flash(q, k, v, *, causal, window, q_chunk, kv_chunk):
     if sk != sk0:
         k = F.pad(k, (0, 0, 0, 0, 0, sk - sk0))
         v = F.pad(v, (0, 0, 0, 0, 0, sk - sk0))
-    cfgt = _FlashCfg(causal, window, q_chunk, kv_chunk, sk0)
+    cfgt = _FlashCfg(causal, window, q_chunk, kv_chunk, sk0, q_start)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         out = _FlashAttention.apply(q, k, v, cfgt)
     else:

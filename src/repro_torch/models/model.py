@@ -419,13 +419,11 @@ def attn_sublayer(layer: DecoderLayer, cfg: ModelConfig, x, positions,
                   q_chunk: int, causal: bool = True, enc_out=None):
     """One layer over a whole sequence -> (x, its cache entry: k, v
     (roped) and, with a cross block, ck, cv; aux the MoE's, or None)."""
-    b, s = x.shape[:2]
     h = layer.norm1(x)
     q, k, v = A.qkv(layer.attn, h, positions, cfg.rope_theta)
     window = cfg.sliding_window if layer.kind == "attn_local" else None
     out = A.flash_attention(q, k, v, causal=causal, window=window,
-                            q_chunk=q_chunk, kv_chunk=q_chunk)
-    out = constrain(out.reshape(b, s, -1), ("batch", None, "model"))
+                            q_chunk=q_chunk, kv_chunk=q_chunk, merged=True)
     x = constrain(x + out @ layer.attn.wo, ("batch", None, None))
     entry = {"k": k, "v": v}
     if layer.cross is not None:

@@ -7,10 +7,12 @@ sharded trace is a DTensor program (``repro_torch.launch.dryrun``): the
 parameters and inputs are DTensors on a ``DeviceMesh``, each op
 propagates placements by its sharding rule, and ``constrain``
 redistributes a tensor to the placements the reference's
-``PartitionSpec`` names.  Where DTensor has no rule for an op, the
-model code constrains that op's inputs to ``Replicate`` — what XLA does
-with what it cannot infer.  The launcher installs a policy (mesh +
-batch axes); model code marks intermediates with logical dims:
+``PartitionSpec`` names, and its gradient on the way back, as the
+reference's constraint constrains the cotangent.  Where DTensor has no
+rule for an op, the model code constrains that op's inputs to
+``Replicate`` — what XLA does with what it cannot infer.  The launcher
+installs a policy (mesh + batch axes); model code marks intermediates
+with logical dims:
 
     x = constrain(x, ("batch", None, "model"))
 
@@ -197,6 +199,55 @@ def placements_of(spec, mesh_dim_names, current=None) -> list:
     return out
 
 
+def _pin(x: DTensor, spec: tuple) -> DTensor:
+    """``x`` on ``spec``'s placements (``FREE`` dims as they are), each
+    pending sum reduced in ``_reduce_placed``'s order."""
+    free = FREE in spec
+    want = tuple(placements_of(spec, x.device_mesh.mesh_dim_names,
+                               x.placements if free else None))
+    return _reduce_placed(x, want)
+
+
+class _Constrain(torch.autograd.Function):
+    """The value and its gradient both on ``spec``'s placements: the
+    transpose of ``with_sharding_constraint`` puts the same constraint on
+    the cotangent.  DTensor's own ``redistribute`` takes the gradient
+    from wherever it arrives to the input's placements, which leaves the
+    backward's placements to DTensor's op-by-op choice.  ``spec`` None
+    keeps the value as it is and places the gradient as the value is
+    (``hold``)."""
+
+    @staticmethod
+    def forward(ctx, x, spec):
+        ctx.spec = spec
+        if spec is None:
+            ctx.want = tuple(Replicate() if p.is_partial() else p
+                             for p in x.placements)
+            return x.view_as(x)
+        y = _pin(x, spec)
+        return x.view_as(x) if y is x else y
+
+    @staticmethod
+    def backward(ctx, g):
+        if isinstance(g, DTensor):
+            g = (_reduce_placed(g, ctx.want) if ctx.spec is None
+                 else _pin(g, ctx.spec))
+        return g, None
+
+
+def _pinnable(x) -> bool:
+    return (get_policy() is not None and isinstance(x, DTensor)
+            and x.requires_grad and torch.is_grad_enabled())
+
+
+def hold(x):
+    """``x`` as it is, its gradient brought back to ``x``'s placements
+    (a pending sum replicated) before it passes on: in front of a
+    reshape whose gradient arrives placed where DTensor cannot undo the
+    reshape (a merged dim split where its heads do not divide)."""
+    return _Constrain.apply(x, None) if _pinnable(x) else x
+
+
 def constrain(x, dims, free: bool = False):
     """dims: per-axis logical name ("batch" | "model" | None).
 
@@ -204,16 +255,16 @@ def constrain(x, dims, free: bool = False):
     UNCONSTRAINED: XLA may shard them as it likes) instead of forcing
     replication — used for tensors whose best extra sharding is
     architecture-dependent (e.g. flash-attention accumulators when the
-    head count doesn't divide the model axis)."""
+    head count doesn't divide the model axis).
+
+    The gradient is placed by the same spec as it passes back (its free
+    dims as it arrives), as the reference's constraint pins the
+    cotangent."""
     pol = get_policy()
     if pol is None or not isinstance(x, DTensor):
         return x
     spec = spec_of(pol, dims, x.shape, free)
-    want = placements_of(spec, x.device_mesh.mesh_dim_names,
-                         x.placements if free else None)
-    if tuple(want) == tuple(x.placements):
-        return x
-    return x.redistribute(x.device_mesh, want)
+    return _Constrain.apply(x, spec) if _pinnable(x) else _pin(x, spec)
 
 
 def replicate(x):
@@ -279,6 +330,11 @@ def local_shards(fn, in_dims, out_dims, *args):
     arguments are redistributed there first.  Without a policy, or with
     no DTensor argument, this is ``fn(*args)``.
 
+    Where the "model" dims (``n`` heads) do not divide the model axis but
+    ``n`` divides it, each group of ranks along it runs one head
+    (``_head_groups``), as XLA splits such heads (the mLSTM's 4 on 16),
+    in place of every rank running every head.
+
     DTensor has no rule for these loops' einsums once two of their
     batch dims are split (they flatten (B, H) into one dim split twice,
     which it cannot place); per shard they are plain tensor ops."""
@@ -312,12 +368,65 @@ def local_shards(fn, in_dims, out_dims, *args):
         if not isinstance(a, DTensor):
             a = DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim)
         in_p.append(place(dims))
-        local.append(a.redistribute(mesh, in_p[-1]))
+        # placed already: no redistribution, whose backward would reduce
+        # a pending gradient here rather than where it is next placed
+        local.append(a if tuple(a.placements) == tuple(in_p[-1])
+                     else a.redistribute(mesh, in_p[-1]))
     single = not out_dims or not isinstance(out_dims[0], tuple)
     out_p = place(out_dims) if single else tuple(place(d) for d in out_dims)
+    grad_p = _grad_placements(in_p, local)
+    n = {a.shape[d] for a, dims in zip(args, in_dims) if dims is not None
+         for d, name in enumerate(dims) if name == "model"}
+    m = pol.axis_size("model")
+    if (resolved.get("model", pol.model_axis) is None
+            and len(n) == 1 and 1 < min(n) < m and m % min(n) == 0):
+        fn, axis = _head_groups(fn, in_dims, out_dims, single, min(n), m,
+                                mesh, pol), mesh.mesh_dim_names.index(
+                                    pol.model_axis)
+
+        def pending(p):            # the model axis a pending sum
+            return [Partial() if i == axis else q for i, q in enumerate(p)]
+
+        out_p = pending(out_p) if single else tuple(map(pending, out_p))
+        grad_p = tuple(None if g is None or not a.is_floating_point()
+                       else tuple(pending(g)) for g, a in zip(grad_p, local))
     return local_map(fn, out_placements=out_p, in_placements=tuple(in_p),
-                     in_grad_placements=_grad_placements(in_p, local),
-                     device_mesh=mesh)(*local)
+                     in_grad_placements=grad_p, device_mesh=mesh)(*local)
+
+
+def _head_groups(fn, in_dims, out_dims, single: bool, n: int, m: int, mesh,
+                 pol):
+    """``fn`` run on one of ``n`` heads, the one of this rank's group of
+    ``m / n`` ranks along the model axis, its outputs whole along the
+    heads with the others zero; only the group's first rank keeps them,
+    the rest hand on zeros, so the outputs are exact pending sums over
+    the model axis (and so are the arguments' gradients)."""
+    c = mesh.get_coordinate()[mesh.mesh_dim_names.index(pol.model_axis)]
+    j, first = c // (m // n), c % (m // n) == 0
+
+    def at(dims):
+        return None if dims is None or "model" not in dims else \
+            dims.index("model")
+
+    def whole(t, d):
+        if d is None:
+            return t
+        pad = list(t.shape)
+        before, pad[d] = pad[d] * j, pad[d] * (n - j - 1)
+        t = torch.cat([t.new_zeros(t.shape[:d] + (before,) + t.shape[d + 1:]),
+                       t, t.new_zeros(pad)], dim=d)
+        return t if first else torch.where(
+            torch.zeros((), dtype=torch.bool, device=t.device), t, 0)
+
+    def run(*xs):
+        xs = [x if at(dims) is None else x.narrow(at(dims), j, 1)
+              for x, dims in zip(xs, in_dims)]
+        out = fn(*xs)
+        if single:
+            return whole(out, at(out_dims))
+        return tuple(whole(o, at(d)) for o, d in zip(out, out_dims))
+
+    return run
 
 
 def pointwise(fn, x):
@@ -379,13 +488,28 @@ def vocab_take(src, index, dim: int, take):
 
     ``take(local_src, local_index)`` is the plain op; ``index`` is
     placed like ``src`` on every other mesh dim (a table is first
-    gathered whole along its other dims)."""
+    gathered whole along its other dims).  Logits whole along the vocab
+    (one that does not divide "model") take their gold entries on each
+    rank's rows too: DTensor's own gather would gather the rows whole,
+    and its backward scatter into logits of every row (seamless's
+    256206-entry vocabulary: 50 GB a rank)."""
     if not isinstance(src, DTensor):
         return take(src, index)
     split, lo, n = _vocab_slice(src, dim)
-    if not split:
-        return take(src, index)
     from torch.distributed.tensor.experimental import local_map
+
+    if not split:
+        rows = tuple(src.placements)
+        if dim == 0 or any(p.is_partial() or isinstance(p, Shard) and
+                           p.dim % src.ndim >= index.ndim for p in rows):
+            return take(src, index)
+        if not isinstance(index, DTensor):
+            index = DTensor.from_local(index, src.device_mesh,
+                                       [Replicate()] * src.device_mesh.ndim)
+        index = index.redistribute(src.device_mesh, rows)
+        return local_map(take, out_placements=list(rows),
+                         in_placements=(rows, rows),
+                         device_mesh=src.device_mesh)(src, index)
 
     mesh = src.device_mesh
     if dim == 0:          # a table: whole along its width on every rank
@@ -427,29 +551,98 @@ def split_heads(x, n: int, hd: int):
     """(B, S, n·hd) -> (B, S, n, hd), heads over "model" where they
     divide it (unconstrained otherwise).  Under a policy whose model
     axis ``n`` heads do not divide, the merged dim is first replicated
-    over it: DTensor cannot unflatten a dim sharded unevenly."""
+    over it: DTensor cannot unflatten a dim sharded unevenly.  That step
+    is no constraint of the reference's, so its gradient goes back to
+    the merged dim's own placement (a pending sum reduce-scattered)."""
     pol = get_policy()
-    if pol is not None and n % pol.axis_size("model"):
-        x = constrain(x, ("batch", None, None))
+    if pol is not None and isinstance(x, DTensor) and \
+            n % pol.axis_size("model"):
+        x = x.redistribute(x.device_mesh, placements_of(
+            spec_of(pol, ("batch", None, None), x.shape),
+            x.device_mesh.mesh_dim_names))
     return constrain(x.reshape(x.shape[0], x.shape[1], n, hd), HEADS,
                      free=True)
 
 
 def merge_heads(x):
     """(B, S, n, hd) -> (B, S, n·hd), the merged dim over "model" where
-    it divides it.  Where ``n`` heads do not divide the model axis, the
-    heads come whole and the product that follows (the mLSTM's output
-    gate) splits the merged dim over "model"; DTensor cannot split such
-    a gradient back into heads, so the merged dim is placed on "model"
-    here, where the backward gathers it whole before the split."""
+    it divides it, and so its gradient.  Where ``n`` heads do not divide
+    the model axis, the heads come whole and DTensor cannot split such
+    a gradient back into heads: ``hold`` gathers it whole first."""
     b, s = x.shape[:2]
-    return constrain(x.reshape(b, s, -1), ("batch", None, "model"))
+    return constrain(hold(x.reshape(b, s, -1)), ("batch", None, "model"))
 
 
 def per_head(fn, q, k, v):
     """``fn(q, k, v)`` — attention over (B, S, heads, hd) — on each rank's
     shard of rows and heads (``local_shards``)."""
     return local_shards(fn, (HEADS,) * 3, HEADS, q, k, v)
+
+
+def _zigzag(s: int, m: int, device) -> torch.Tensor:
+    """The positions of ``s`` in the order that gives rank ``c`` of ``m``
+    blocks ``c`` and ``2m − 1 − c`` of ``2m``: each rank's causal
+    queries then need the same number of key tiles."""
+    n = s // (2 * m)
+    return torch.cat([torch.arange(b * n, (b + 1) * n, device=device)
+                      for c in range(m) for b in (c, 2 * m - 1 - c)])
+
+
+def attend_merged(fn, q, k, v):
+    """``fn(q, k, v)`` over (B, S, heads, hd) -> (B, S, heads·hd), the
+    merged dim on "model" (``merge_heads``), ``fn`` taking the first
+    query's position as ``q_start``.
+
+    Where a head count does not divide "model", the reference leaves the
+    heads free and XLA splits other dims over "model"; here the queries
+    are: each model rank attends with every head for two blocks of
+    ``S / 2m`` queries, ``c`` and ``2m − 1 − c`` (so the causal work is
+    the same on every rank), against the whole keys and values.  The
+    queries are permuted into that order where each rank holds them
+    whole, split, and the output comes back by an all-to-all onto the
+    merged dim, where each rank holds the sequence whole again and
+    undoes the permutation.  Otherwise this is ``per_head`` then
+    ``merge_heads``."""
+    pol = get_policy()
+    mesh = q.device_mesh if isinstance(q, DTensor) else None
+    m = pol.axis_size("model") if pol is not None else 1
+    b, s, h, hd = q.shape
+    if (mesh is None or m == 1 or s % (2 * m)
+            or (h % m == 0 and k.shape[2] % m == 0)):
+        return merge_heads(per_head(fn, q, k, v))
+    from torch.distributed.tensor.experimental import local_map
+
+    names = mesh.mesh_dim_names
+    axis = names.index(pol.model_axis)
+    rows = placements_of(spec_of(pol, HEADS[:1] + (None,) * 3, q.shape),
+                         names)
+    split = [Shard(1) if i == axis else p for i, p in enumerate(rows)]
+    merged = [Shard(2) if i == axis else p for i, p in enumerate(rows)]
+    q, k, v = (t.redistribute(mesh, rows) for t in (q, k, v))
+    n, c = s // (2 * m), mesh.get_coordinate()[axis]
+
+    def permute(t, inverse=False):
+        order = _zigzag(s, m, t.device)
+        if inverse:
+            order = torch.argsort(order)
+        return t.index_select(1, order)
+
+    def blocks(ql, kl, vl):
+        return torch.cat([fn(ql[:, :n], kl, vl, q_start=c * n),
+                          fn(ql[:, n:], kl, vl, q_start=(2 * m - 1 - c) * n)],
+                         dim=1)
+
+    q = local_map(permute, out_placements=rows, in_placements=(rows,),
+                  device_mesh=mesh)(q).redistribute(mesh, split)
+    in_p = (split, rows, rows)
+    out = local_map(blocks, out_placements=split, in_placements=in_p,
+                    in_grad_placements=_grad_placements(in_p, (q, k, v)),
+                    device_mesh=mesh)(q, k, v)
+    out = out.reshape(b, s, h * hd).redistribute(mesh, merged)
+    out = local_map(lambda t: permute(t, inverse=True),
+                    out_placements=merged, in_placements=(merged,),
+                    device_mesh=mesh)(out)
+    return constrain(out, ("batch", None, "model"))
 
 
 def cache_attend(fn, q, k_cache, v_cache):
@@ -500,6 +693,30 @@ def write_slot(cache, pos: int, val) -> None:
     size = cache.shape[1] // ways
     if index * size <= pos < (index + 1) * size:
         cache.to_local()[:, pos - index * size] = local
+
+
+def microbatches(x, n: int) -> list:
+    """``x`` cut along dim 0 into ``n`` equal microbatches, each on the
+    batch's placement (the reference's ``reshape`` to (n, B / n, ...)
+    and its scan over them).  Where ``x`` is split along dim 0, a slice
+    of it would gather it whole on every rank first (a vision cell's
+    (B, S, D) embeddings: 17 GB); the split moves to the first other dim
+    that no mesh dim splits yet and that it divides (an all-to-all),
+    where each rank's part of a microbatch is local, and each
+    microbatch moves back to the batch's placement (another)."""
+    m = x.shape[0] // n
+    dims = ("batch",) + (None,) * (x.ndim - 1)
+    if get_policy() is not None and _split_along(x, 0):
+        mesh = x.device_mesh
+        ways = math.prod(mesh.size(i) for i, p in enumerate(x.placements)
+                         if isinstance(p, Shard) and p.dim == 0)
+        to = next((d for d in range(1, x.ndim) if not _split_along(x, d)
+                   and x.shape[d] % ways == 0), None)
+        if to is not None:
+            x = x.redistribute(mesh, [
+                Shard(to) if isinstance(p, Shard) and p.dim == 0 else p
+                for p in x.placements])
+    return [constrain(x[i * m:(i + 1) * m], dims) for i in range(n)]
 
 
 def constrain_tree(tree, dims_fn):

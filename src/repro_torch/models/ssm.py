@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.layers import RMSNorm, normal_init_, param
-from repro_torch.models.partitioning import constrain, local_shards, scan
+from repro_torch.models.partitioning import constrain, hold, local_shards, scan
 
 CONV_K = 4
 
@@ -77,8 +77,10 @@ class Mamba2(nn.Module):
 
 def _split_proj(p: Mamba2, x: torch.Tensor):
     d_in, h = ssm_dims(x.shape[-1], p.head_dim)
-    z, xbc, dt = torch.split(x @ p.in_proj, [d_in, d_in + 2 * p.n_state, h],
-                             dim=-1)
+    # the split's gradient comes back whole: ``hold`` splits it again as
+    # the product's output is, so in_proj's gradient is made in its shard
+    z, xbc, dt = torch.split(hold(x @ p.in_proj),
+                             [d_in, d_in + 2 * p.n_state, h], dim=-1)
     return z, xbc, dt, d_in, h
 
 

@@ -26,6 +26,8 @@ from torch import nn
 
 from repro_torch.models.layers import RMSNorm, normal_init_, param
 from repro_torch.models.partitioning import (
+    constrain,
+    hold,
     local_shards,
     merge_heads,
     pointwise,
@@ -72,11 +74,13 @@ def _mlstm_proj(p: MLSTM, x: torch.Tensor):
     b, s, d = x.shape
     hn = p.n_heads
     hp = 2 * d // hn
-    q, k, v = torch.chunk(x @ p.qkv, 3, dim=-1)
+    # the chunks' gradient comes back whole: ``hold`` splits it again as
+    # the product's output is (``ssm._split_proj``)
+    q, k, v = torch.chunk(hold(x @ p.qkv), 3, dim=-1)
     q = q.reshape(b, s, hn, hp)
     k = k.reshape(b, s, hn, hp) / math.sqrt(hp)
     v = v.reshape(b, s, hn, hp)
-    li, lf = torch.chunk((x @ p.gates).float(), 2, dim=-1)  # (B,S,H) each
+    li, lf = torch.chunk(hold(x @ p.gates).float(), 2, dim=-1)  # (B,S,H)
     lf = pointwise(F.logsigmoid, lf + p.fbias)
     o = torch.sigmoid(x @ p.ogate)
     return q, k, v, li, lf, o
@@ -260,7 +264,9 @@ def slstm_apply(p: SLSTM, x: torch.Tensor):
     hs, *state = local_shards(
         _slstm_scan, (_ROWS + (None,), (None,) * 3, (None,)),
         (_ROWS + (None,),) + (_ROWS,) * 4, xg, p.r.float(), p.fbias)
-    y = p.norm(hs.to(x.dtype))
+    # the rows' outputs come whole along d: split them over "model" for
+    # the row-parallel ``out``, so its gradient is made in its shard
+    y = constrain(p.norm(hs.to(x.dtype)), ("batch", None, "model"))
     return y @ p.out, tuple(state)
 
 

@@ -23,7 +23,7 @@ from repro_torch.models import convert
 from repro_torch.models import decode as DEC
 from repro_torch.models import model as MDL
 from repro_torch.models.partitioning import (
-    constrain, reduce_grads_to_params, scan)
+    microbatches, reduce_grads_to_params, scan)
 from repro_torch.optim import adamw
 from repro_torch.optim.compression import mean_in_rank_order, psum_compressed
 
@@ -61,10 +61,8 @@ def build_train_step(
             grads, metrics = _grads(model, batch, q_chunk)
         else:
             # a microbatch keeps the batch's sharding under a policy
-            micro = [{k: constrain(v[i * (v.shape[0] // accum):
-                                     (i + 1) * (v.shape[0] // accum)],
-                                   ("batch",) + (None,) * (v.ndim - 1))
-                      for k, v in batch.items()} for i in range(accum)]
+            parts = {k: microbatches(v, accum) for k, v in batch.items()}
+            micro = [{k: parts[k][i] for k in batch} for i in range(accum)]
 
             def step(i, grads):
                 g, m = _grads(model, micro[i], q_chunk)

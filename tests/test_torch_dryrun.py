@@ -4,9 +4,11 @@
 The reference's dry-run module sets ``XLA_FLAGS`` to 512 host devices
 when it is imported, so its functions run in one subprocess
 (``reference``), which also compiles a column- then row-parallel MLP
-block on four of those devices for ``hlo_parse.analyze``.  The port's
-op counter runs here on a 2×2 mesh of torch's fake process group; the
-CLI runs in subprocesses, one fake world each, at reduced sizes with
+block on four of those devices for ``hlo_parse.analyze``, and the train
+steps of reduced configurations (``REDUCED``, batch 8 × 64) on small
+meshes of them.  The port's op counter runs here on a 2×2 mesh of
+torch's fake process group; the CLI and the reduced cells run in
+subprocesses (a process holds one fake world at a time) with
 ``--device cpu``.
 """
 import json
@@ -20,7 +22,8 @@ import textwrap
 import pytest
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                      distribute_tensor)
 from torch.testing._internal.distributed.fake_pg import FakeStore
 
 from repro.launch import roofline as RR
@@ -30,11 +33,21 @@ from repro_torch.launch import dryrun as D
 from repro_torch.launch import mesh as M
 from repro_torch.launch import roofline as R
 from repro_torch.launch.op_count import OpCounter, extrapolate
+from repro_torch.models import partitioning as PT
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 MESHES = {"16x16": {"data": 16, "model": 16},
           "2x16x16": {"pod": 2, "data": 16, "model": 16}}
 GEO_K = (1, 8, 64)
+#: reduced train cells (batch 8 × 64) and the port's dot FLOPs a device
+#: against the reference's: equal, or within this factor either way
+REDUCED = {("gemma-7b", (2, 2)): 1.0, ("qwen2.5-32b", (2, 2)): 1.0,
+           ("seamless-m4t-large-v2", (2, 2)): 1.0,
+           ("chameleon-34b", (2, 2)): 1.0,
+           # 1 KV head on 4: the queries split over "model"
+           ("gemma-2b", (2, 4)): 1.10,
+           # the split projections' gradients held in their shards
+           ("zamba2-7b", (2, 2)): 1.10, ("xlstm-350m", (2, 2)): 1.10}
 
 REFERENCE = """
 import json, sys
@@ -83,7 +96,35 @@ f = jax.jit(mlp, in_shardings=(sh("data", None), sh(None, "model"),
 args = [jax.ShapeDtypeStruct(s, jnp.float32)
         for s in ((8, 16), (16, 64), (64, 16))]
 out["mlp"] = hlo_parse.analyze(f.lower(*args).compile().as_text())
+
+from repro.configs.registry import get_reduced
+from repro.configs.shapes import ShapeSpec
+from repro.launch.mesh import batch_axes
+from repro.models import partitioning as PT
+out["reduced"] = {}
+for arch, dims in port["reduced"]:
+    cfg = get_reduced(arch)
+    m = DR.effective_mesh(cfg, Mesh(np.array(
+        jax.devices()[:int(np.prod(dims))]).reshape(dims), ("data", "model")))
+    with PT.apply_policy(PT.Policy(m, batch_axes(m))):
+        shape = ShapeSpec("train_4k", 64, 8, "train")
+        jfn, args = DR.build_cell(cfg, shape, m)
+        text = jfn.lower(*args).compile().as_text()
+    out["reduced"][f"{arch}|{dims}"] = hlo_parse.analyze(text)["dot_flops"]
 print("REF" + json.dumps(out))
+"""
+
+#: the port's side of ``REDUCED``, one process, one fake world a cell
+PORT_REDUCED = """
+import json, sys
+from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.launch import dryrun as D
+out = {}
+for arch, dims in json.loads(sys.argv[1]):
+    r = D.run_cell(arch, "train_4k", device="cpu", mesh_shape=tuple(dims),
+                   shape=ShapeSpec("train_4k", 64, 8, "train"), reduced=True)
+    out[f"{arch}|{dims}"] = r["hlo_dot_flops_per_device"]
+print("PORT" + json.dumps(out))
 """
 
 
@@ -95,11 +136,36 @@ def _env():
     return env
 
 
+@pytest.fixture(scope="module", autouse=True)
+def port_subprocesses():
+    """The port's reduced cells and ``trace_profile --dots`` of one of
+    them, started with the module so that they trace beside the
+    reference's compiles."""
+    cells = json.dumps([[arch, list(dims)] for arch, dims in REDUCED])
+    procs = {
+        "reduced": subprocess.Popen(
+            [sys.executable, "-c", textwrap.dedent(PORT_REDUCED), cells],
+            env=_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True),
+        "dots": subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.trace_profile",
+             "--arch", "gemma-2b", "--shape", "train_4k", "--reduced",
+             "--mesh", "2x2", "--batch", "8", "--seq-len", "64", "--device",
+             "cpu", "--dots", "--top", "1000"], env=_env(),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)}
+    yield procs
+    for proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+        proc.communicate()
+
+
 @pytest.fixture(scope="module")
 def reference():
     port = {"vpu": A.VPU_OPS, "hbm": A.HBM_BW,
             "bw": A.NVLINK_LINKS * A.NVLINK_BW, "lat": A.NVLINK_LATENCY,
-            "ks": GEO_K}
+            "ks": GEO_K, "reduced": [[arch, list(dims)]
+                                     for arch, dims in REDUCED]}
     proc = subprocess.run(
         [sys.executable, "-c", textwrap.dedent(REFERENCE), json.dumps(port)],
         env=_env(), capture_output=True, text=True, timeout=300)
@@ -246,6 +312,120 @@ def test_mlp_block_matches_hlo_parse(reference, mesh22):
     assert c.dot_flops == ref["dot_flops"]
     assert dict(c.bytes) == ref["collective_bytes"]
     assert dict(c.counts) == ref["collective_counts"]
+
+
+def _finished(procs, name: str) -> str:
+    stdout, stderr = procs[name].communicate(timeout=300)
+    assert procs[name].returncode == 0, stderr[-3000:]
+    return stdout
+
+
+@pytest.fixture(scope="module")
+def reduced_counts(reference, port_subprocesses):
+    stdout = _finished(port_subprocesses, "reduced")
+    line = [ln for ln in stdout.splitlines() if ln.startswith("PORT")]
+    return json.loads(line[-1][4:]), reference["reduced"]
+
+
+@pytest.mark.parametrize("arch,dims", list(REDUCED))
+def test_reduced_cells_count_the_references_dot_flops(reduced_counts, arch,
+                                                      dims):
+    """A reduced train step's dot FLOPs a device against
+    ``hlo_parse.analyze`` of the reference's compile of the same
+    configuration, shape and mesh: equal where ``REDUCED`` says 1.0,
+    else within its factor either way.  Before each ``constrain`` pinned
+    its gradient, gemma-7b, qwen2.5-32b and seamless-m4t-large-v2 read
+    1.113, 1.075 and 1.075 times the reference's, gemma-2b on 2×4 1.683
+    times; before ``hold`` kept the split projections' gradients in
+    their shards, zamba2-7b and xlstm-350m 1.080 and 1.113 times."""
+    port, ref = reduced_counts
+    key = f"{arch}|{list(dims)}"
+    factor = REDUCED[(arch, dims)]
+    if factor == 1.0:
+        assert port[key] == ref[key]
+    else:
+        assert 1 / factor <= port[key] / ref[key] <= factor, \
+            port[key] / ref[key]
+
+
+def test_trace_profile_dots_sum_to_the_records_dot_flops(port_subprocesses):
+    """``trace_profile --dots``: every product's weighted FLOPs, by
+    phase, op, local shapes and model-code frame, sum to the record's
+    ``hlo_dot_flops_per_device`` (reduced gemma-2b × train_4k on 2×2);
+    the attention's, the FFN's and the loss's products are told by their
+    frames, forward, backward and the loss chunks' recompute apart."""
+    out = json.loads(_finished(port_subprocesses, "dots").splitlines()[-1])
+    rows = out["dots"]
+    assert out["dots_total"] == out["hlo_dot_flops_per_device"] > 0
+    assert sum(r[0] for r in rows) == out["dots_total"]
+    assert {r[2] for r in rows} == {"forward", "backward", "recompute"}
+    frames = " ".join(r[5] for r in rows)
+    for where in ("attention.py", "layers.py", "_flash_bwd", "_chunk_nll",
+                  "(MmBackward0)"):
+        assert where in frames, where
+    assert "?" not in {r[5] for r in rows}
+
+
+class _HandBack(torch.autograd.Function):
+    """Identity whose backward hands its gradient on placed as
+    ``placements``: a consumer whose gradient arrives placed otherwise
+    than the constraint in front of it."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = placements
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        # made here, not moved: a pending sum is each rank's own values
+        plain = [Replicate() if p.is_partial() else p for p in ctx.placements]
+        local = distribute_tensor(torch.ones(g.shape), g.device_mesh, plain,
+                                  src_data_rank=None).to_local()
+        return DTensor.from_local(local, g.device_mesh, ctx.placements,
+                                  run_check=False), None
+
+
+def _pinned_grad(mesh, dims, free, handed, before=(Shard(0), Replicate())):
+    """The gradient that ``constrain(x, dims, free)`` hands ``x`` (placed
+    ``before``) when its consumer hands back ``handed``."""
+    x = distribute_tensor(torch.ones(8, 16), mesh, list(before),
+                          src_data_rank=None).requires_grad_()
+    with PT.apply_policy(PT.Policy(mesh, ("data",))):
+        y = _HandBack.apply(PT.constrain(x, dims, free), list(handed))
+        y.to_local().sum().backward()
+    return x.grad
+
+
+def test_constrain_places_the_gradient_at_its_spec(mesh22):
+    """``constrain``'s backward leaves the gradient on the spec's
+    placements, as ``with_sharding_constraint``'s transpose constrains
+    the cotangent, wherever its consumer hands it back: replicated, or
+    a pending sum reduce-scattered; a ``free`` dim keeps the placement
+    the gradient arrives with."""
+    # the input is split over "data" only; the spec splits both dims
+    g = _pinned_grad(mesh22, ("batch", "model"), False,
+                     (Replicate(), Replicate()))
+    assert tuple(g.placements) == (Shard(0), Shard(1))
+    c = OpCounter()
+    with c:
+        g = _pinned_grad(mesh22, ("batch", "model"), False,
+                         (Shard(0), Partial()))
+    assert tuple(g.placements) == (Shard(0), Shard(1))
+    assert dict(c.counts) == {"reduce-scatter": 1}
+    # a replicated spec: the consumer's split and pending sum undone
+    g = _pinned_grad(mesh22, (None, None), False, (Shard(1), Partial()))
+    assert tuple(g.placements) == (Replicate(), Replicate())
+    # free: dim 1's split over "model" kept, the batch pinned
+    g = _pinned_grad(mesh22, ("batch", None), True, (Replicate(), Shard(1)))
+    assert tuple(g.placements) == (Shard(0), Shard(1))
+    # without a policy, or on a plain tensor, nothing is constrained
+    t = torch.ones(4, 4, requires_grad=True)
+    with PT.apply_policy(PT.Policy(mesh22, ("data",))):
+        assert PT.constrain(t, ("batch", "model")) is t
+    x = distribute_tensor(torch.ones(8, 16), mesh22, [Shard(0), Replicate()],
+                          src_data_rank=None)
+    assert PT.constrain(x, ("batch", "model")) is x
 
 
 def _cli(*args):

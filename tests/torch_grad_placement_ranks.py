@@ -1,7 +1,8 @@
 """The rank side of ``tests/test_torch_grad_placement.py``, run as
 ``python tests/torch_grad_placement_ranks.py OUT_DIR`` beside the
 module's other tests.  Four spawned processes each join a gloo group
-through a ``FileStore``, make a 2×2 mesh ("data", "model") and run
+through a ``FileStore``, make a 2×2 mesh ("data", "model") (1×4 for a
+case of ``MESHES``) and run
 each case's train step twice from the same seed: on plain tensors
 without a policy (the one-rank step), and on DTensor parameters under
 the activation policy; and once more on plain tensors in float64 (the
@@ -122,8 +123,21 @@ def _mlp_case(gen):
                                                 "y": (Shard(0), Replicate())}
 
 
+#: a case's configuration where it is not its architecture's reduced
+#: one, and its mesh where it is not 2×2: three query heads and 511
+#: tokens, which a model axis of 2 does not divide (the queries split
+#: over it, the gold logits taken on each rank's rows); two mLSTM heads
+#: on a model axis of 4 (a head a pair of ranks)
+VARIANTS = {"gemma-2b-3-heads": ("gemma-2b", {"n_heads": 3,
+                                              "vocab_size": 511}),
+            "xlstm-350m-2-heads": ("xlstm-350m",
+                                   {"n_heads": 2, "n_kv_heads": 2})}
+MESHES = {"xlstm-350m-2-heads": (1, 4)}
+
+
 def _lm_case(arch: str, gen, mesh):
-    cfg = registry.get_reduced(arch)
+    base, changes = VARIANTS.get(arch, (arch, {}))
+    cfg = dataclasses.replace(registry.get_reduced(base), **changes)
     model = MDL.init_params(cfg, gen, "cpu")
     tokens = torch.randint(0, cfg.vocab_size, (ROWS, 16), generator=gen,
                            dtype=torch.int32)
@@ -140,16 +154,18 @@ def _lm_case(arch: str, gen, mesh):
 OPT = adamw.AdamWConfig(lr=1e-2, warmup_steps=1)
 
 
-def _step(model, batch, accum: int) -> dict:
-    """One train step of ``model`` in place -> the gradients AdamW was
-    handed."""
+def _step(model, batch, accum: int) -> tuple:
+    """One train step of ``model`` in place -> (the gradients AdamW was
+    handed, the loss)."""
     opt = adamw.init_state(OPT, dict(model.named_parameters()))
     seen: dict = {}
     step = STEPS.build_train_step(
         registry.get_reduced("gemma-2b"), OPT, q_chunk=8, accum=accum,
         device="cpu", observe=lambda params, grads: seen.update(grads))
-    step(model, opt, batch)
-    return seen
+    loss = step(model, opt, batch)[2]["loss"]
+    if isinstance(loss, DTensor):
+        loss = loss.full_tensor()
+    return seen, float(loss)
 
 
 def _place(model: nn.Module, placements: dict, mesh) -> None:
@@ -168,7 +184,8 @@ def _shard(t: torch.Tensor, mesh, placements) -> np.ndarray:
 
 
 def run_case(name: str, accum: int, mesh) -> dict:
-    """The steps of one case -> {parameter: arrays and placements}.
+    """The steps of one case -> the three steps' losses and
+    ``params``: {parameter: arrays and placements}.
     ``grad_float64`` is the one-rank gradient computed in float64, and
     ``grad_rounding`` the one-rank float32 gradient's largest distance
     from it;
@@ -182,25 +199,27 @@ def run_case(name: str, accum: int, mesh) -> dict:
     loss = loss_of(mlp_loss) if name == "mlp" else contextlib.nullcontext()
     with loss:
         with in_float64():
-            grads64 = _step(wide, {k: v.double() if v.is_floating_point()
-                                   else v for k, v in batch.items()}, accum)
-        plain_grads = _step(model, batch, accum)
+            grads64, loss64 = _step(wide, {
+                k: v.double() if v.is_floating_point() else v
+                for k, v in batch.items()}, accum)
+        plain_grads, plain_loss = _step(model, batch, accum)
         _place(sharded, placements, mesh)
         dbatch = {k: distribute_tensor(v, mesh, list(bplacements[k]),
                                        src_data_rank=None)
                   for k, v in batch.items()}
         policy = PT.Policy(mesh, ("data",))
         with implicit_replication(), PT.apply_policy(policy):
-            grads = _step(sharded, dbatch, accum)
+            grads, loss = _step(sharded, dbatch, accum)
     whole = {n: g.full_tensor() for n, g in grads.items()}
     adamw.apply_updates(OPT, dict(replay.named_parameters()), whole,
                         adamw.init_state(OPT, dict(replay.named_parameters())))
-    out = {}
+    out = {"loss": loss, "loss_one_rank": plain_loss, "loss_float64": loss64,
+           "params": {}}
     plain = dict(model.named_parameters())
     replayed = dict(replay.named_parameters())
     for n, p in sharded.named_parameters():
         g = grads[n]
-        out[n] = {
+        out["params"][n] = {
             "grad_placements": [str(q) for q in g.placements],
             "param_placements": [str(q) for q in p.placements],
             "is_dtensor": isinstance(g, DTensor),
@@ -226,19 +245,21 @@ def run_cases(rank: int, world: int, store: str, cases: list,
     case raised)."""
     torch.set_num_threads(1)
     with file_group(store, rank, world):
-        mesh = make_host_mesh((2, 2), ("data", "model"), "cpu")
+        meshes = {dims: make_host_mesh(dims, ("data", "model"), "cpu")
+                  for dims in {(2, 2), *MESHES.values()}}
         for name, accum in cases:
             try:
-                res = run_case(name, accum, mesh)
+                res = run_case(name, accum, meshes[MESHES.get(name, (2, 2))])
             except Exception as e:  # noqa: BLE001
                 res = {"error": f"{type(e).__name__}: {e}"[:3000]}
             np.save(f"{out_dir}/{name}-{accum}-{rank}.npy",
                     np.array(res, dtype=object), allow_pickle=True)
 
 
-#: (case, microbatches): the MLP, then reduced gemma-2b and zamba2-7b
+#: (case, microbatches): the MLP, then reduced gemma-2b and zamba2-7b,
+#: and gemma-2b and xlstm-350m with heads that do not divide "model"
 CASES = [(name, accum) for name in ("mlp", "gemma-2b", "zamba2-7b")
-         for accum in (1, 2)]
+         for accum in (1, 2)] + [(name, 1) for name in VARIANTS]
 
 if __name__ == "__main__":
     out_dir = sys.argv[1]
