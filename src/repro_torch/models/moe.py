@@ -20,6 +20,22 @@ and the combine a gather of the slots back, weighted; the expert
 products are batched matrix products over all experts (the reference's
 einsums), so a decode step reads every expert's weights.  Nothing reads
 back to the host.
+
+Under an activation policy (``partitioning``) a rank routes,
+dispatches and combines its own batch rows for its own experts: routing
+is independent row by row, so no activation moves before the expert
+products (the router's weights are gathered whole).  The rows stay on
+the batch axes; the router product, softmax, top k and queue positions
+run on them (``local_shards``).  The dispatch fills the slots of the
+rank's ``E / M`` experts along "model" for its rows
+(``expert_shards``): the rank's block of the ``(E, B·C, D)`` slots.
+The slots are gathered over the batch axes for the expert products at
+the weights' placements (experts over "model", the hidden dim over the
+batch axes), and the down product's pending sum is reduce-scattered
+back onto the rank's rows.  The combine weighs the rank's rows'
+assignments to its experts; the sum over "model" of the ranks' shares
+is the output.  No rank holds another row's routing or all experts'
+slots.
 """
 from __future__ import annotations
 
@@ -32,7 +48,13 @@ from torch import nn
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.models.layers import MLP, normal_init_, param
-from repro_torch.models.partitioning import constrain, on_replicas, replicate
+from repro_torch.models.partitioning import (constrain, expert_shards,
+                                             gather, local_shards, row_mean)
+
+#: (B, Cs, ·): the batch rows over the batch axes
+ROWS = ("batch", None, None)
+#: (E, B·C, D): the experts over "model", each row's slots with its row
+SLOTS = ("model", "batch", None)
 
 
 class MoE(nn.Module):
@@ -92,7 +114,7 @@ def route(x: torch.Tensor, router: torch.Tensor, cfg: MoEConfig) -> Routing:
     b, cs, _ = x.shape
     e, k = cfg.n_experts, cfg.top_k
     cap = _capacity(cs * k / e, cfg.capacity_factor)
-    probs = torch.softmax(replicate(x.float() @ router.float()), dim=-1)
+    probs = torch.softmax(x.float() @ router.float(), dim=-1)
     gate_w, gate_idx = torch.sort(probs, dim=-1, descending=True,
                                   stable=True)
     gate_w, gate_idx = gate_w[..., :k], gate_idx[..., :k]
@@ -114,49 +136,75 @@ def _experts(moe: MoE, xe: torch.Tensor, activation: str) -> torch.Tensor:
         h = g * torch.bmm(xe, moe.up)
     else:
         h = F.gelu(torch.bmm(xe, moe.up), approximate="tanh")
-    # expert hidden: F rides the batch axes (the weights' sharding)
+    # expert hidden: F rides the batch axes (the weights' sharding); the
+    # down product's pending sum over them goes back to the rows' slots
     h = constrain(h, ("model", None, "batch"))
-    return constrain(torch.bmm(h, moe.down), ("model", None, None))
+    return constrain(torch.bmm(h, moe.down), SLOTS)
+
+
+def _route_rows(x: torch.Tensor, router: torch.Tensor, cfg: MoEConfig,
+                cap: int) -> tuple:
+    """``route``'s fields and each assignment's row of the ``(E·B·C, D)``
+    slots of these B rows, (B, Cs, K): slot (e, b, c) is row
+    e·B·C + b·C + c; a dropped assignment's is the spare row E·B·C past
+    the end."""
+    r = route(x, router, cfg)
+    b = x.shape[0]
+    rows = torch.arange(b, device=x.device).view(b, 1, 1) * cap
+    slot = r.gate_idx * (b * cap) + rows + r.pos
+    return (*r, torch.where(r.valid, slot, cfg.n_experts * b * cap))
+
+
+def _own(slot: torch.Tensor, first: int, count: int, per: int):
+    """``_route_rows``' slot rows, of ``per`` rows an expert, as rows of
+    the slots of experts ``first`` to ``first + count``; an assignment
+    to another expert, or dropped, takes the spare row past the end."""
+    slot = slot - first * per
+    return torch.where((slot >= 0) & (slot < count * per), slot, count * per)
 
 
 def _route_chunk(moe: MoE, x: torch.Tensor, cfg: MoEConfig,
                  activation: str):
     """x: (B, Cs, D) -> (B, Cs, D) through the routed experts, aux."""
-    b, cs, d = x.shape
+    _, cs, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     cap = _capacity(cs * k / e, cfg.capacity_factor)
-    # under a policy the routing, the dispatch scatter and the combine
-    # gather run replicated: DTensor has no rule for the in-place
-    # scatters (the dispatch's ``index_copy_`` runs on each replica)
-    x = replicate(x)
-    gate_idx, gate_w, pos, valid, probs, chosen = route(x, moe.router, cfg)
+    dtype = x.dtype
+    x = constrain(x, ROWS)
+    *r, slot = local_shards(lambda x, w: _route_rows(x, w, cfg, cap),
+                            (ROWS, (None, None)), (ROWS,) * 7, x, moe.router)
+    r = Routing(*r)
 
-    # slot (e, b, c) is row e·B·C + b·C + c of the (E, B·C, D) expert
-    # input; a dropped assignment writes the one spare row past the end
-    rows = torch.arange(b, device=x.device).view(b, 1, 1) * cap
-    slot = gate_idx * (b * cap) + rows + pos
-    slot = torch.where(valid, slot, e * b * cap).reshape(-1)
-
-    def dispatch(x, slot):
-        xe = x.new_zeros((e * b * cap + 1, d))
-        xe.index_copy_(0, slot,
+    def dispatch(first, count, x, slot):
+        b = x.shape[0]
+        if count < e:
+            slot = _own(slot, first, count, b * cap)
+        xe = x.new_zeros((count * b * cap + 1, d))
+        xe.index_copy_(0, slot.reshape(-1),
                        x.unsqueeze(2).expand(b, cs, k, d).reshape(-1, d))
-        return xe[:-1].view(e, b * cap, d)
+        return xe[:-1].view(count, b * cap, d)
 
-    xe = constrain(on_replicas(dispatch, x, slot), ("model", None, None))
-    ye = _experts(moe, xe, activation)
+    # the weights cast to the activation dtype before the sum over K, as
+    # the reference's combine tensor is; a dropped assignment, or one to
+    # another rank's expert, weighs 0 (its slot index is kept in range)
+    def combine(first, count, ye, gate_w, valid, slot):
+        b = gate_w.shape[0]
+        n = count * b * cap
+        if count < e:
+            slot = _own(slot, first, count, b * cap)
+            valid = slot < n
+        w = torch.where(valid, gate_w, 0.0).to(dtype).reshape(b * cs, 1, k)
+        yk = ye.reshape(n, d)[slot.reshape(-1).clamp_max(n - 1)]
+        return torch.bmm(w, yk.view(b * cs, k, d)).view(b, cs, d)
 
-    # combine: the weights cast to the activation dtype before the sum
-    # over K, as the reference's combine tensor is; a dropped
-    # assignment weighs 0 (its slot index is kept in range)
-    w = torch.where(valid, gate_w, 0.0).to(x.dtype).reshape(b * cs, 1, k)
-    yk = replicate(ye).reshape(e * b * cap, d)[slot.clamp_max(e * b * cap - 1)]
-    y = constrain(torch.bmm(w, yk.view(b * cs, k, d)).view(b, cs, d),
-                  ("batch", None, None))
+    xe = expert_shards(dispatch, e, (ROWS, ROWS), SLOTS, x, slot)
+    ye = _experts(moe, gather(xe, ("model", None, None)), activation)
+    y = constrain(expert_shards(combine, e, (SLOTS,) + (ROWS,) * 3, ROWS,
+                                ye, r.gate_w, r.valid, slot), ROWS)
 
     # load-balance auxiliary (Switch-style), over every token of the chunk
-    me = chosen.float().mean((0, 1))
-    pe = probs.mean((0, 1))
+    me = row_mean(r.chosen.float(), (0, 1))
+    pe = row_mean(r.probs, (0, 1))
     return y, e * (me * pe).sum()
 
 

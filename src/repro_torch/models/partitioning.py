@@ -9,17 +9,17 @@ propagates placements by its sharding rule, and ``constrain``
 redistributes a tensor to the placements the reference's
 ``PartitionSpec`` names, and its gradient on the way back, as the
 reference's constraint constrains the cotangent.  Where DTensor has no
-rule for an op, the model code constrains that op's inputs to
-``Replicate`` — what XLA does with what it cannot infer.  The launcher
-installs a policy (mesh + batch axes); model code marks intermediates
-with logical dims:
+rule for an op, the model code runs it on each rank's shard through a
+stand-in below.  The launcher installs a policy (mesh + batch axes);
+model code marks intermediates with logical dims:
 
     x = constrain(x, ("batch", None, "model"))
 
 Every placement decision of the port lives in this module: the model
 code calls ``constrain`` and the named stand-ins below (per-shard
-loops, vocab lookups, the attention cache's placement and writes) and
-never reads a placement itself.  Each is a no-op without a policy.
+loops, vocab lookups, the MoE's dispatch and combine, the attention
+cache's placement and writes) and never reads a placement itself.
+Each is a no-op without a policy.
 
 Every constraint is divisibility-guarded: a logical axis whose dim size
 doesn't divide the mesh-axis size is dropped (e.g. MQA's single KV head
@@ -267,13 +267,18 @@ def constrain(x, dims, free: bool = False):
     return _Constrain.apply(x, spec) if _pinnable(x) else _pin(x, spec)
 
 
-def replicate(x):
-    """``x`` replicated over its mesh (a DTensor under a policy; else
-    ``x``): the stand-in, at a site whose op DTensor has no sharding
-    rule for, for what XLA does with what it cannot infer."""
-    if get_policy() is None or not isinstance(x, DTensor):
+def gather(x, dims):
+    """``x`` on the placements of logical ``dims`` (a DTensor under a
+    policy; else ``x``) by a plain redistribution: its gradient goes
+    back to ``x``'s own placements (a pending sum reduce-scattered),
+    where ``constrain`` would pin it at ``dims``.  The MoE gathers its
+    expert slots over the batch axes so for the expert products, and
+    each rank keeps the gradient of its own rows' slots only."""
+    pol = get_policy()
+    if pol is None or not isinstance(x, DTensor):
         return x
-    want = [Replicate()] * x.device_mesh.ndim
+    want = placements_of(spec_of(pol, dims, x.shape),
+                         x.device_mesh.mesh_dim_names)
     if tuple(want) == tuple(x.placements):
         return x
     return x.redistribute(x.device_mesh, want)
@@ -300,6 +305,29 @@ def last_mean(x):
     return s / x.shape[-1]
 
 
+def row_mean(x, dims: tuple):
+    """``x.mean(dims)`` over dims that include dim 0, the batch rows.
+    Where ``x`` is a DTensor whose rows are split (evenly, as
+    ``constrain`` splits them; the MoE's router probabilities and
+    choices), each rank takes the mean of its own rows as its share of a
+    pending sum over the splitting mesh dims: DTensor's own mean expands
+    its gradient over every row on every rank, then reduce-scatters it."""
+    if not _split_along(x, 0):
+        return x.mean(dims)
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    rows = [isinstance(p, Shard) and p.dim % x.ndim == 0
+            for p in x.placements]
+    in_p = [Shard(0) if r else Replicate() for r in rows]
+    ways = math.prod(mesh.size(i) for i, r in enumerate(rows) if r)
+    return local_map(lambda t: t.mean(dims) / ways,
+                     out_placements=[Partial() if r else Replicate()
+                                     for r in rows],
+                     in_placements=(in_p,), device_mesh=mesh)(
+                         x.redistribute(mesh, in_p))
+
+
 def _grad_placements(in_p, args) -> tuple:
     """The placements of the local gradients that ``local_map``'s
     backward hands each argument (its ``in_grad_placements``).  Where an
@@ -319,16 +347,37 @@ def _grad_placements(in_p, args) -> tuple:
         for p, a in zip(in_p, args))
 
 
+def _mesh_of(args):
+    """The ``DeviceMesh`` of the first DTensor in ``args``, or None."""
+    return next((a.device_mesh for a in args if isinstance(a, DTensor)),
+                None)
+
+
+def _resolve(pol: Policy, in_dims, args) -> dict:
+    """{logical axis: the mesh axes ``constrain`` would give it}, the same
+    for every argument (None where two of them disagree)."""
+    resolved: dict = {}
+    for a, dims in zip(args, in_dims):
+        if dims is None:
+            continue
+        for name, entry in zip(dims, spec_of(pol, dims, a.shape)):
+            if name is not None:
+                resolved[name] = (entry if resolved.get(name, entry) == entry
+                                  else None)
+    return resolved
+
+
 def local_shards(fn, in_dims, out_dims, *args):
     """``fn(*args)`` on each rank's shard (``local_map``) for a function
     that is independent along its logical dims — attention, the SSD and
-    mLSTM chunk scans are, per batch row and head.  ``in_dims`` gives
-    each argument's logical dims (``None`` for a non-tensor), ``out_dims``
-    each output's (one tuple for a single output).  A logical axis maps
-    to the mesh axes ``constrain`` would give it, the same for every
-    argument (dropped for all where one of them does not divide).  The
-    arguments are redistributed there first.  Without a policy, or with
-    no DTensor argument, this is ``fn(*args)``.
+    mLSTM chunk scans are, per batch row and head; the MoE's routing, per
+    batch row.  ``in_dims`` gives each argument's logical dims (``None``
+    for a non-tensor), ``out_dims`` each output's (one tuple for a single
+    output).  A logical axis maps to the mesh axes ``constrain`` would
+    give it, the same for every argument (dropped for all where one of
+    them does not divide).  The arguments are redistributed there first.
+    Without a policy, or with no DTensor argument, this is
+    ``fn(*args)``.
 
     Where the "model" dims (``n`` heads) do not divide the model axis but
     ``n`` divides it, each group of ranks along it runs one head
@@ -338,21 +387,35 @@ def local_shards(fn, in_dims, out_dims, *args):
     DTensor has no rule for these loops' einsums once two of their
     batch dims are split (they flatten (B, H) into one dim split twice,
     which it cannot place); per shard they are plain tensor ops."""
-    pol = get_policy()
-    mesh = next((a.device_mesh for a in args if isinstance(a, DTensor)),
-                None)
+    pol, mesh = get_policy(), _mesh_of(args)
     if pol is None or mesh is None:
         return fn(*args)
-    from torch.distributed.tensor.experimental import local_map
+    resolved = _resolve(pol, in_dims, args)
+    n = {a.shape[d] for a, dims in zip(args, in_dims) if dims is not None
+         for d, name in enumerate(dims) if name == "model"}
+    m = pol.axis_size("model")
+    if (resolved.get("model", pol.model_axis) is None
+            and len(n) == 1 and 1 < min(n) < m and m % min(n) == 0):
+        fn = _head_groups(fn, in_dims, out_dims, _single(out_dims),
+                          min(n), m, mesh, pol)
+        return _on_shards(fn, in_dims, out_dims, args, mesh, pol, resolved,
+                          pending=True)
+    return _on_shards(fn, in_dims, out_dims, args, mesh, pol, resolved)
 
-    resolved: dict = {}
-    for a, dims in zip(args, in_dims):
-        if dims is None:
-            continue
-        for name, entry in zip(dims, spec_of(pol, dims, a.shape)):
-            if name is not None:
-                resolved[name] = (entry if resolved.get(name, entry) == entry
-                                  else None)
+
+def _single(out_dims) -> bool:
+    """Whether ``out_dims`` is one output's dims (not a tuple of them)."""
+    return not out_dims or not isinstance(out_dims[0], tuple)
+
+
+def _on_shards(fn, in_dims, out_dims, args, mesh, pol: Policy,
+               resolved: dict, pending: bool = False):
+    """``local_map`` of ``fn`` with each logical axis on its ``resolved``
+    mesh axes.  ``pending``: each rank along the model axis computes a
+    share, so every output and every floating argument that the model
+    axis does not split has a pending sum over it (the output, and the
+    argument's gradient)."""
+    from torch.distributed.tensor.experimental import local_map
 
     def place(dims) -> list:     # a list: local_map reads a tuple as
         return placements_of(    # one placement list an output
@@ -372,26 +435,52 @@ def local_shards(fn, in_dims, out_dims, *args):
         # a pending gradient here rather than where it is next placed
         local.append(a if tuple(a.placements) == tuple(in_p[-1])
                      else a.redistribute(mesh, in_p[-1]))
-    single = not out_dims or not isinstance(out_dims[0], tuple)
+    single = _single(out_dims)
     out_p = place(out_dims) if single else tuple(place(d) for d in out_dims)
     grad_p = _grad_placements(in_p, local)
-    n = {a.shape[d] for a, dims in zip(args, in_dims) if dims is not None
-         for d, name in enumerate(dims) if name == "model"}
-    m = pol.axis_size("model")
-    if (resolved.get("model", pol.model_axis) is None
-            and len(n) == 1 and 1 < min(n) < m and m % min(n) == 0):
-        fn, axis = _head_groups(fn, in_dims, out_dims, single, min(n), m,
-                                mesh, pol), mesh.mesh_dim_names.index(
-                                    pol.model_axis)
+    if pending:
+        axis = mesh.mesh_dim_names.index(pol.model_axis)
 
-        def pending(p):            # the model axis a pending sum
-            return [Partial() if i == axis else q for i, q in enumerate(p)]
+        def summed(p):             # the model axis a pending sum
+            return [Partial() if i == axis and isinstance(q, Replicate)
+                    else q for i, q in enumerate(p)]
 
-        out_p = pending(out_p) if single else tuple(map(pending, out_p))
-        grad_p = tuple(None if g is None or not a.is_floating_point()
-                       else tuple(pending(g)) for g, a in zip(grad_p, local))
+        out_p = summed(out_p) if single else tuple(map(summed, out_p))
+        grad_p = tuple(g if g is None or not a.is_floating_point()
+                       else tuple(summed(g)) for g, a in zip(grad_p, local))
     return local_map(fn, out_placements=out_p, in_placements=tuple(in_p),
                      in_grad_placements=grad_p, device_mesh=mesh)(*local)
+
+
+def expert_shards(fn, n_experts: int, in_dims, out_dims, *args):
+    """``fn(first, count, *args)`` on each rank's shard, for the MoE's
+    dispatch into its experts' slots and its combine out of them (an
+    ``index_copy_`` and an indexed gather, which DTensor has no rule
+    for).  The rank holds ``count`` experts from ``first``: its slice of
+    ``n_experts`` along "model" where they divide it (a "model" dim is
+    such a slice), else all of them.  Its batch rows are those its
+    arguments' "batch" dims hold (``local_shards``' placement), and a
+    "batch" dim of an output (the slots' ``B·C``) is split as the rows
+    are.  Where the experts are split, each rank dispatches and
+    combines only the assignments to its own: an output or a floating
+    argument without a "model" dim has a pending sum over the model
+    axis.  Without a policy, or with no DTensor argument, this is
+    ``fn(0, n_experts, *args)``."""
+    pol, mesh = get_policy(), _mesh_of(args)
+    if pol is None or mesh is None:
+        return fn(0, n_experts, *args)
+    resolved = _resolve(pol, in_dims, args)
+    m = pol.axis_size("model")
+    if m == 1 or n_experts % m:
+        resolved["model"] = None
+        return _on_shards(lambda *xs: fn(0, n_experts, *xs), in_dims,
+                          out_dims, args, mesh, pol, resolved)
+    resolved["model"] = pol.model_axis
+    count = n_experts // m
+    first = count * mesh.get_coordinate()[
+        mesh.mesh_dim_names.index(pol.model_axis)]
+    return _on_shards(lambda *xs: fn(first, count, *xs), in_dims, out_dims,
+                      args, mesh, pol, resolved, pending=True)
 
 
 def _head_groups(fn, in_dims, out_dims, single: bool, n: int, m: int, mesh,
@@ -442,26 +531,6 @@ def pointwise(fn, x):
     x = x.redistribute(x.device_mesh, p)
     return local_map(fn, out_placements=p, in_placements=(p,),
                      device_mesh=x.device_mesh)(x)
-
-
-def on_replicas(fn, *args):
-    """``fn(*args)`` where DTensor ``args`` are replicated first and ``fn``
-    runs on each rank's whole copy (``local_map``), for ops DTensor has
-    no sharding rule for at all (the MoE dispatch's ``index_copy_``);
-    the result is replicated.  Plain tensors call ``fn`` directly."""
-    ds = [a for a in args if isinstance(a, DTensor)]
-    if not ds:
-        return fn(*args)
-    from torch.distributed.tensor.experimental import local_map
-
-    mesh = ds[0].device_mesh
-    rep = [Replicate()] * mesh.ndim
-    args = [a.redistribute(mesh, rep) if isinstance(a, DTensor) else a
-            for a in args]
-    return local_map(fn, out_placements=rep,
-                     in_placements=tuple(rep if isinstance(a, DTensor)
-                                         else None for a in args),
-                     device_mesh=mesh)(*args)
 
 
 def _vocab_slice(src: DTensor, dim: int):

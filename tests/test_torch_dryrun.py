@@ -114,18 +114,72 @@ for arch, dims in port["reduced"]:
 print("REF" + json.dumps(out))
 """
 
-#: the port's side of ``REDUCED``, one process, one fake world a cell
+#: the port's side of ``REDUCED``, one process, one fake world a cell;
+#: then reduced deepseek-moe-16b on 2×4 (``MOE_CELL``) under a counter
+#: that keeps the local shape of every tensor and collective result the
+#: MoE's chunk code makes (forward, and backward by the autograd node's
+#: forward frame, which anomaly mode records) and of its forward router
+#: products
 PORT_REDUCED = """
-import json, sys
+import json, re, sys
+import torch
 from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.launch import dryrun as D
+from repro_torch.launch import trace_profile as TP
+SHAPE = ShapeSpec("train_4k", 64, 8, "train")
 out = {}
 for arch, dims in json.loads(sys.argv[1]):
     r = D.run_cell(arch, "train_4k", device="cpu", mesh_shape=tuple(dims),
-                   shape=ShapeSpec("train_4k", 64, 8, "train"), reduced=True)
+                   shape=SHAPE, reduced=True)
     out[f"{arch}|{dims}"] = r["hlo_dot_flops_per_device"]
 print("PORT" + json.dumps(out))
+
+
+class Seen(D.OpCounter):
+    last = None
+
+    def __init__(self, fold=False):
+        super().__init__(fold=fold)
+        Seen.last, self.made, self.router = self, set(), []
+
+    def chunk_frame(self):
+        where, recompute = TP._frame_here()
+        node = torch._C._current_autograd_node()
+        if node is not None and not recompute and (
+                where is None or "/models/" not in where):
+            where = TP._node_frame(node)
+        m = re.search(r"models/moe\\.py:\\d+ (\\w+)", where or "")
+        return m.group(1) if m and m.group(1) != "moe_apply" else None
+
+    def _hold(self, t):
+        if t.device.type != "meta" and t.untyped_storage() not in \\
+                self._storages and self.chunk_frame():
+            self.made.add(("tensor", tuple(t.shape)))
+        super()._hold(t)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        res = super().__torch_dispatch__(func, types, args, kwargs)
+        kind = self._kinds.get(func._overloadpacket)
+        if kind and isinstance(res, torch.Tensor) and self.chunk_frame():
+            self.made.add((kind[0], tuple(res.shape)))
+        return res
+
+    def _on_dot(self, packet, args, flops):
+        if self.chunk_frame() == "route" and \\
+                torch._C._current_autograd_node() is None:
+            self.router.append([list(a.shape) for a in args])
+
+
+arch, dims = json.loads(sys.argv[2])
+D.OpCounter = Seen
+torch.autograd.set_detect_anomaly(True, check_nan=False)
+r = D.run_cell(arch, "train_4k", device="cpu", mesh_shape=tuple(dims),
+               shape=SHAPE, reduced=True)
+print("MOE" + json.dumps({
+    "logical_mesh": r["logical_mesh"], "accum": r["accum"],
+    "made": sorted(Seen.last.made), "router": Seen.last.router}))
 """
+MOE_CELL = ("deepseek-moe-16b", (2, 4))
 
 
 def _env():
@@ -144,7 +198,8 @@ def port_subprocesses():
     cells = json.dumps([[arch, list(dims)] for arch, dims in REDUCED])
     procs = {
         "reduced": subprocess.Popen(
-            [sys.executable, "-c", textwrap.dedent(PORT_REDUCED), cells],
+            [sys.executable, "-c", textwrap.dedent(PORT_REDUCED), cells,
+             json.dumps(MOE_CELL)],
             env=_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
             text=True),
         "dots": subprocess.Popen(
@@ -364,6 +419,49 @@ def test_trace_profile_dots_sum_to_the_records_dot_flops(port_subprocesses):
                   "(MmBackward0)"):
         assert where in frames, where
     assert "?" not in {r[5] for r in rows}
+
+
+@pytest.fixture(scope="module")
+def moe_trace(port_subprocesses):
+    stdout = _finished(port_subprocesses, "reduced")
+    line = [ln for ln in stdout.splitlines() if ln.startswith("MOE")]
+    return json.loads(line[-1][3:])
+
+
+def test_the_sharded_moe_routes_and_combines_each_ranks_own_rows(moe_trace):
+    """Reduced deepseek-moe-16b × train_4k (8 × 64 tokens) on a 2×4 fake
+    world: each forward router product is the rank's own rows of a chunk
+    by the whole d_model (2·B_loc·S·D·E FLOPs a layer and microbatch, a
+    chunk at a time), and no tensor or collective result that the MoE's
+    chunk code makes, forward or backward, holds the chunk's B·Cs·K
+    assignment rows or every expert's slots, of the microbatch's rows or
+    of the rank's (the replicated plan made both: the (B, Cs, K, D)
+    expanded input, the (E·B·C + 1, D) dispatch buffer and the gathered
+    (E, B·C, D) expert outputs)."""
+    from repro_torch.models import moe as MOE
+
+    cfg = registry.get_reduced(MOE_CELL[0])
+    e, k, d = cfg.moe.n_experts, cfg.moe.top_k, cfg.d_model
+    seq, batch = 64, 8
+    data, model = map(int, moe_trace["logical_mesh"].split("x"))
+    assert (data, model) == MOE_CELL[1]
+    rows = batch // moe_trace["accum"]            # a microbatch's B
+    own = rows // data                            # B_loc
+    cs = min(cfg.moe.router_chunk, seq)
+    cap = MOE._capacity(cs * k / e, cfg.moe.capacity_factor)
+    chunks = cfg.n_layers * moe_trace["accum"] * seq // cs
+    assert moe_trace["router"] == [[[own * cs, d], [d, e]]] * chunks
+    assert sum(2 * a[0] * a[1] * b[1] for a, b in moe_trace["router"]) == \
+        cfg.n_layers * moe_trace["accum"] * 2 * own * seq * d * e
+    # (rows, D) for rows of: the chunk's assignments, every expert's
+    # slots (with the dispatch's spare row) of the microbatch or the rank
+    whole = {rows * cs * k, e * rows * cap, e * rows * cap + 1,
+             e * own * cap, e * own * cap + 1}
+    kinds = {kind for kind, _ in moe_trace["made"]}
+    assert "tensor" in kinds and "all-gather" in kinds
+    for kind, shape in moe_trace["made"]:
+        if shape and shape[-1] == d:
+            assert math.prod(shape[:-1]) not in whole, (kind, shape)
 
 
 class _HandBack(torch.autograd.Function):

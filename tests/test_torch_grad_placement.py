@@ -4,8 +4,9 @@ the backward makes it (the reference's ``grad_shardings``), and the
 float32 microbatch sum keeps those placements.
 
 On a 2×4 mesh of torch's fake process group (one process standing for
-eight ranks, as in ``tests/test_torch_dryrun.py``), reduced gemma-2b and
-zamba2-7b take one train step of 8 × 32 tokens at 1 and 2 microbatches:
+eight ranks, as in ``tests/test_torch_dryrun.py``), reduced gemma-2b,
+zamba2-7b and deepseek-moe-16b take one train step of 8 × 32 tokens at
+1 and 2 microbatches:
 every gradient that AdamW is handed has its parameter's placements, no
 pending sum, and as many local bytes as the parameter.  Before the
 reduction (the code as it was without it; a CPU run, not asserted)
@@ -22,13 +23,20 @@ heads, which "model" does not divide (its ranks attend for blocks of
 the queries, ``partitioning.attend_merged``), and reduced xlstm-350m
 with two mLSTM heads on a 1×4 mesh (a head a pair of ranks,
 ``partitioning.local_shards``); every ``constrain`` pins its gradient.
+So do reduced deepseek-moe-16b (its shared expert) at 1 and 2
+microbatches and reduced arctic-480b (its dense residual FFN), whose
+ranks route, dispatch and combine their own rows for their own experts
+(``partitioning.expert_shards``); each MoE case's one-rank step routes
+no token within ``ROUTING_MARGIN`` of a tie between its k-th and
+(k+1)-th expert, so no difference can come from a flipped choice.
 A float64 one-rank step is the witness for the float32 rounding: the
 one-rank float32 gradients of the MLP and of gemma-2b lie within 7.4e-7
 of their largest element from it, and the sharded ones within 1e-6 of
-the one-rank float32 ones.  zamba2-7b's and the two-head xlstm-350m's
-one-rank float32 gradients lie further from it (the SSD's and the
-xLSTM's float32 cumulative decays), so their sharded ones are held
-against the float64 step instead (measured for zamba2-7b: at most 2.3
+the one-rank float32 ones.  zamba2-7b's, the two-head xlstm-350m's and
+deepseek-moe-16b's in one microbatch one-rank float32 gradients lie
+further from it (the SSD's and the xLSTM's float32 cumulative decays;
+the MoE by 1.01e-6 of its largest element), so their sharded ones are
+held against the float64 step instead (measured for zamba2-7b: at most 2.3
 times as far as the one-rank float32 gradient, on a CPU, torch 2.13).
 The losses are held alike.
 """
@@ -54,11 +62,18 @@ from repro_torch.launch.op_count import local_bytes
 from repro_torch.models import partitioning as PT
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-TRACED = [(arch, accum) for arch in ("gemma-2b", "zamba2-7b")
+TRACED = [(arch, accum) for arch in ("gemma-2b", "zamba2-7b",
+                                    "deepseek-moe-16b")
           for accum in (1, 2)]
+#: the MoE cases of ``RANK_CASES``
+MOE_CASES = [("deepseek-moe-16b", 1), ("deepseek-moe-16b", 2),
+             ("arctic-480b", 1)]
 RANK_CASES = [(name, accum) for name in ("mlp", "gemma-2b", "zamba2-7b")
               for accum in (1, 2)] + [("gemma-2b-3-heads", 1),
-                                      ("xlstm-350m-2-heads", 1)]
+                                      ("xlstm-350m-2-heads", 1)] + MOE_CASES
+#: a MoE case's smallest gap between a token's k-th and (k+1)-th router
+#: probability: above it, no float32 rounding flips a top-k choice
+ROUTING_MARGIN = 1e-5
 #: a gradient against the one-rank step's, and an updated parameter
 #: against the one-rank step's, as a share of its largest element
 GRAD_TOL = PARAM_TOL = 1e-6
@@ -71,8 +86,10 @@ LOSS_TOL = 1e-6
 ROUNDING = 4
 #: the cases whose one-rank float32 gradients lie further than
 #: ``GRAD_TOL`` from the float64 ones (the SSD's and the xLSTM's float32
-#: cumulative decays)
-ROUNDED = ("zamba2-7b", "xlstm-350m-2-heads")
+#: cumulative decays; reduced deepseek-moe-16b in one microbatch, by
+#: 1.01e-6 of its largest element)
+ROUNDED = {("zamba2-7b", 1), ("zamba2-7b", 2), ("xlstm-350m-2-heads", 1),
+           ("deepseek-moe-16b", 1)}
 #: AdamW's first update is g / (|g| + eps): where a gradient element is
 #: below this share of its largest, a float32 rounding of it can turn
 #: its update by up to the learning rate
@@ -257,6 +274,17 @@ def test_the_sharded_loss_equals_the_one_rank_loss_on_four_gloo_ranks(
                                                            wide)
 
 
+@pytest.mark.parametrize("name,accum", MOE_CASES)
+def test_no_moe_case_routes_a_near_tie(rank_results, name, accum):
+    """Each MoE case's one-rank step routes every token with a gap of
+    more than ``ROUTING_MARGIN`` between its k-th and (k+1)-th router
+    probability, so that a sharded step that differs from it cannot be
+    put down to a top-k choice flipped by rounding."""
+    for rank in range(4):
+        margin = rank_results[(name, accum, rank)]["routing_margin"]
+        assert margin > ROUTING_MARGIN, (rank, margin)
+
+
 @pytest.mark.parametrize("name,accum", RANK_CASES)
 def test_the_sharded_step_equals_the_one_rank_step_on_four_gloo_ranks(
         rank_results, name, accum):
@@ -275,7 +303,7 @@ def test_the_sharded_step_equals_the_one_rank_step_on_four_gloo_ranks(
     within ``PARAM_TOL``."""
     exact = all(d["grad_rounding"] <= GRAD_TOL * d["grad_max"]
                 for d in rank_results[(name, accum, 0)]["params"].values())
-    assert exact == (name not in ROUNDED)
+    assert exact == ((name, accum) not in ROUNDED)
     for rank in range(4):
         for pname, d in rank_results[(name, accum, rank)]["params"].items():
             tag = (name, accum, rank, pname)

@@ -232,10 +232,10 @@ def test_constrain_is_a_no_op_without_a_policy(mesh22):
     d = distribute_tensor(x, mesh22, [Shard(0), Replicate()],
                           src_data_rank=None)
     assert PT.constrain(d, ("model", None)) is d
-    assert PT.replicate(d) is d
+    assert PT.gather(d, (None, None)) is d
     with PT.apply_policy(PT.Policy(mesh22, ("data",))):
         assert PT.constrain(x, ("batch", "model")) is x   # a plain tensor
-        r = PT.replicate(d)
+        r = PT.gather(d, (None, None))
         assert list(r.placements) == [Replicate(), Replicate()]
     assert PT.get_policy() is None
 

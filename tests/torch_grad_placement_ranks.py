@@ -30,6 +30,7 @@ from repro_torch.core.distributed import file_group
 from repro_torch.launch import sharding as SH
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import model as MDL
+from repro_torch.models import moe as MOE
 from repro_torch.models import partitioning as PT
 from repro_torch.optim import adamw
 from repro_torch.train import steps as STEPS
@@ -99,6 +100,28 @@ def in_float64():
     finally:
         torch.Tensor.float, torch.zeros = cast, zeros
         torch.set_default_dtype(default)
+
+
+@contextlib.contextmanager
+def routing_margins(gaps: list):
+    """While open, each ``MOE.route`` call appends the smallest gap
+    between the k-th and the (k+1)-th router probability of the tokens
+    it routes (every token of these cases is real: their 16 tokens make
+    one router chunk, with no pad)."""
+    route = MOE.route
+
+    def spy(x, router, cfg):
+        r = route(x, router, cfg)
+        top = r.probs.detach().sort(-1, descending=True).values
+        gaps.append(float((top[..., cfg.top_k - 1]
+                           - top[..., cfg.top_k]).min()))
+        return r
+
+    MOE.route = spy
+    try:
+        yield gaps
+    finally:
+        MOE.route = route
 
 
 def _float64(model: nn.Module) -> nn.Module:
@@ -190,7 +213,9 @@ def run_case(name: str, accum: int, mesh) -> dict:
     ``grad_rounding`` the one-rank float32 gradient's largest distance
     from it;
     ``param_replay`` is the one-rank AdamW step taken on the sharded
-    step's own gradients, gathered whole."""
+    step's own gradients, gathered whole; ``routing_margin`` (a MoE
+    case) the one-rank float32 step's smallest gap between a token's
+    k-th and (k+1)-th router probability."""
     gen = torch.Generator().manual_seed(0)
     model, batch, placements, bplacements = (
         _mlp_case(gen) if name == "mlp" else _lm_case(name, gen, mesh))
@@ -202,7 +227,8 @@ def run_case(name: str, accum: int, mesh) -> dict:
             grads64, loss64 = _step(wide, {
                 k: v.double() if v.is_floating_point() else v
                 for k, v in batch.items()}, accum)
-        plain_grads, plain_loss = _step(model, batch, accum)
+        with routing_margins([]) as gaps:
+            plain_grads, plain_loss = _step(model, batch, accum)
         _place(sharded, placements, mesh)
         dbatch = {k: distribute_tensor(v, mesh, list(bplacements[k]),
                                        src_data_rank=None)
@@ -215,6 +241,8 @@ def run_case(name: str, accum: int, mesh) -> dict:
                         adamw.init_state(OPT, dict(replay.named_parameters())))
     out = {"loss": loss, "loss_one_rank": plain_loss, "loss_float64": loss64,
            "params": {}}
+    if gaps:
+        out["routing_margin"] = min(gaps)
     plain = dict(model.named_parameters())
     replayed = dict(replay.named_parameters())
     for n, p in sharded.named_parameters():
@@ -257,9 +285,13 @@ def run_cases(rank: int, world: int, store: str, cases: list,
 
 
 #: (case, microbatches): the MLP, then reduced gemma-2b and zamba2-7b,
-#: and gemma-2b and xlstm-350m with heads that do not divide "model"
+#: gemma-2b and xlstm-350m with heads that do not divide "model", and
+#: the MoEs: reduced deepseek-moe-16b (its shared expert) and
+#: arctic-480b (its dense residual FFN)
 CASES = [(name, accum) for name in ("mlp", "gemma-2b", "zamba2-7b")
-         for accum in (1, 2)] + [(name, 1) for name in VARIANTS]
+         for accum in (1, 2)] + [(name, 1) for name in VARIANTS] + [
+             ("deepseek-moe-16b", 1), ("deepseek-moe-16b", 2),
+             ("arctic-480b", 1)]
 
 if __name__ == "__main__":
     out_dir = sys.argv[1]
