@@ -218,7 +218,14 @@ Phases, each of which makes the script exit non-zero when it fails:
    full width, 4 of its 24 layers, batch 8 × 640 (``remat="full"``),
    where the prediction folds the sLSTM's 640 token trips and the
    mLSTM's 5 chunk trips (each run as 4, its backward and recompute
-   weighted) and the real step runs every trip.
+   weighted) and the real step runs every trip; (d) in one more
+   subprocess, ``dryrun.reduction_collectives`` on a fake world of 8
+   (a 2×2×2 mesh, fake CUDA tensors): the card's DTensor must reduce a
+   pending sum over ("pod", "data") into a dim split over both
+   (``REDUCTION_PINNED``) by two reduce-scatters and no all-reduce
+   through ``partitioning._reduce_placed``; gemma-2b × train_4k ×
+   2×16×16's collective bytes by kind are printed beside the CPU
+   sweep's (``CPU_COLLECTIVES``).
 
 The third-to-last line of standard output is the card's ``nvidia-smi``
 name and power limit, the second-to-last ``{"kernels": [...]}``, and
@@ -3627,6 +3634,13 @@ REFERENCE_DOT_FLOPS_TOL = 1.10
 #: ``constrain`` pinned its gradient (torch 2.13; PERF.md §6), which the
 #: card's record is set beside
 CPU_PEAK_BEFORE = {("gemma-2b", "train_4k", "16x16"): 16_525_683_712}
+#: (d): the reduction the card's torch must take by two reduce-scatters
+REDUCTION_PINNED = ("P P S2", "S1 S1 S2")
+#: the CPU sweep's collective bytes a device by kind (torch 2.13; PERF.md
+#: §6's train_4k table), which the card's record is set beside
+CPU_COLLECTIVES = {("gemma-2b", "train_4k", "2x16x16"): {
+    "all-gather": 14_295_367_680, "all-reduce": 26_175_307_856,
+    "all-to-all": 452_984_832, "reduce-scatter": 332_840_960}}
 
 
 def _src_env() -> dict:
@@ -3705,7 +3719,8 @@ def run_dryrun(card: str) -> dict:
     its masters', a cell of REFERENCE_DOT_FLOPS with more than
     REFERENCE_DOT_FLOPS_TOL times the reference's dot FLOPs (or fewer
     than the model's own a rank), FLOPs that differ or a peak more than
-    PREDICT_MEMORY_TOL off."""
+    PREDICT_MEMORY_TOL off, or (d) a REDUCTION_PINNED reduction that
+    takes other collectives than two reduce-scatters."""
     import shutil
     import tempfile
 
@@ -3735,14 +3750,21 @@ def run_dryrun(card: str) -> dict:
                                f"cs.predict_rank(*{args!r})"],
         cwd=ROOT, env=env, text=True, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE) for args in PREDICTIONS}
+    reduce_proc = subprocess.Popen(
+        [sys.executable, "-c", "import json; from repro_torch.launch import "
+                               "dryrun; print('REDUCE' + json.dumps(dryrun."
+                               f"reduction_collectives(device={DEVICE!r})))"],
+        cwd=ROOT, env=env, text=True, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE)
     outputs, pred_outputs = {}, {}
     try:
         for key, p in procs.items():
             outputs[key] = p.communicate(timeout=DRYRUN_TIMEOUT_S)
         for key, p in predicts.items():
             pred_outputs[key] = p.communicate(timeout=DRYRUN_TIMEOUT_S)
+        reduce_out = reduce_proc.communicate(timeout=DRYRUN_TIMEOUT_S)
     finally:
-        for p in [*procs.values(), *predicts.values()]:
+        for p in [*procs.values(), *predicts.values(), reduce_proc]:
             if p.poll() is None:
                 p.kill()
                 p.wait()
@@ -3806,6 +3828,30 @@ def run_dryrun(card: str) -> dict:
             raise AssertionError(f"dry run (a) {key}: dot FLOPs {flops:.6g}, "
                                  f"{flops / ref:.4f} times the reference's")
     log("dry run (a) roofline (the H100's constants):\n" + roof.stdout)
+    for key, cpu in CPU_COLLECTIVES.items():
+        r = records[key]
+        log(f"dry run (a) {' x '.join(key)}: collective bytes a device by "
+            f"kind {r['collectives']} (total "
+            f"{r['collective_bytes_per_device']:.10g}) on the card, torch "
+            f"{torch.__version__}, against the CPU sweep's {cpu} (total "
+            f"{sum(cpu.values()):.10g}, torch 2.13) ({card})")
+
+    if reduce_proc.returncode != 0:
+        raise AssertionError(f"dry run (d): exit {reduce_proc.returncode}\n"
+                             f"{reduce_out[0][-3000:]}\n"
+                             f"{reduce_out[1][-3000:]}")
+    line = [ln for ln in reduce_out[0].splitlines()
+            if ln.startswith("REDUCE")]
+    reductions = json.loads(line[-1][len("REDUCE"):])
+    for case, row in reductions.items():
+        log(f"dry run (d) {case} on a fake 2x2x2 world, torch "
+            f"{torch.__version__}: " + "; ".join(
+                f"{path} {row[path]['counts']} {row[path]['bytes']}"
+                for path in ("placed", "one_call", "by_axis")))
+    pinned = reductions[" -> ".join(REDUCTION_PINNED)]["placed"]["counts"]
+    if pinned != {"reduce-scatter": 2}:
+        raise AssertionError(f"dry run (d): {REDUCTION_PINNED} took "
+                             f"{pinned}, not two reduce-scatters")
 
     results, gaps = {}, {}
     for label, args in zip("bc", PREDICTIONS):
@@ -3857,6 +3903,7 @@ def run_dryrun(card: str) -> dict:
         results[arch], gaps[arch] = res, gap
     out = {"records": list(records.values()), "roofline": roof.stdout,
            "predict": results, "memory_gap": gaps, "hbm_total_bytes": total,
+           "reductions": reductions,
            "seconds": time.perf_counter() - t_phase}
     log(f"dry run: phase {out['seconds']:.1f} s; the card's memory {total} "
         f"bytes against analytic.HBM_CAPACITY {analytic.HBM_CAPACITY:.4g} "

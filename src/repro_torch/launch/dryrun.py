@@ -405,6 +405,70 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False, *,
     }
 
 
+#: (have, want) placements of a pending sum's reduction on a 2×2×2
+#: ("pod", "data", "model") mesh, as ``reduction_collectives`` takes
+#: them: "P" a pending sum, "R" replicated, "S<d>" split along dim d
+REDUCTIONS = (("P P S2", "S1 S1 S2"), ("P P S0", "S1 S1 S0"),
+              ("P P S1", "S1 S1 S1"), ("P P P", "S0 S0 R"),
+              ("P P R", "S1 S1 R"), ("P S0 R", "S0 S0 R"))
+
+
+def _placements(text: str) -> tuple:
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    return tuple(Partial() if p == "P" else Replicate() if p == "R"
+                 else Shard(int(p[1:])) for p in text.split())
+
+
+def _by_axis(x, want):
+    """``x`` on ``want`` by one redistribution a mesh dim, in mesh
+    order (the yardstick of ``reduction_collectives``)."""
+    for i, w in enumerate(want):
+        if x.placements[i] != w:
+            x = x.redistribute(x.device_mesh, [
+                w if j == i else p for j, p in enumerate(x.placements)])
+    return x
+
+
+def reduction_collectives(device=None) -> dict:
+    """``{"have -> want": {path: {"counts": ..., "bytes": ...}}}`` for
+    each case of ``REDUCTIONS``: the collectives by kind that reduce a
+    (16, 16, 16) local float32 tensor placed ``have`` to ``want`` on a
+    fake world of 8 ranks, a 2×2×2 ("pod", "data", "model") mesh, by
+    three paths: ``_reduce_placed`` (``"placed"``, every pending sum of
+    the port), DTensor's own
+    redistribution in one call (``"one_call"``) and one call a mesh dim
+    in mesh order (``"by_axis"``).  It shows the installed torch's
+    DTensor planner, which differs between versions.  Runs its own fake
+    world: the process may hold no default group."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import DTensor
+
+    device = resolve_device(device)
+    paths = {"placed": PT._reduce_placed,
+             "one_call": lambda x, w: x.redistribute(x.device_mesh, w),
+             "by_axis": _by_axis}
+    out: dict = {}
+    with fake_world(8):
+        mesh = make_host_mesh((2, 2, 2), _mesh_axes((2, 2, 2)), device)
+        for have, want in REDUCTIONS:
+            row = out[f"{have} -> {want}"] = {}
+            for name, fn in paths.items():
+                with FakeTensorMode():
+                    x = DTensor.from_local(
+                        torch.ones(16, 16, 16, device=device), mesh,
+                        _placements(have), run_check=False)
+                    counter = OpCounter()
+                    with counter:
+                        y = fn(x, _placements(want))
+                if tuple(y.placements) != _placements(want):
+                    raise RuntimeError(f"{name}: {have} -> {want} ended "
+                                       f"on {y.placements}")
+                row[name] = {"counts": dict(counter.counts),
+                             "bytes": dict(counter.bytes)}
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the paper's own workload on the production mesh
 # ---------------------------------------------------------------------------

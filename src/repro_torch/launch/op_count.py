@@ -400,11 +400,16 @@ class OpCounter(TorchDispatchMode):
             site = self.sites[(kind, _describe(result))]
             site[0] += w
             site[1] += payload * w
+            self._on_collective(kind, result, payload * w)
         return out
 
     def _on_dot(self, packet, args, flops: float) -> None:
         """Called with each matrix product and its weighted FLOPs (a
         hook for ``launch.trace_profile --dots``)."""
+
+    def _on_collective(self, kind: str, result, nbytes: float) -> None:
+        """Called with each collective, its result and its weighted bytes
+        (a hook for ``launch.trace_profile --collectives``)."""
 
     def result(self) -> dict:
         """Per-device totals: ``dot_flops``, ``collective_bytes`` and

@@ -3,7 +3,8 @@ bytes at its peak — a diagnostic of ``launch.dryrun`` itself.
 
     PYTHONPATH=src python -m repro_torch.launch.trace_profile \\
         --arch zamba2-7b --shape train_4k --seq-len 512 --device cpu \\
-        [--no-fold] [--peak] [--dots] [--mesh 16x16] [--reduced]
+        [--no-fold] [--peak] [--dots] [--collectives] [--mesh 16x16] \\
+        [--reduced]
 
 Prints one JSON line: the cell's record figures, the trace's wall
 seconds inside each region (inclusive timers around the microbatch
@@ -21,6 +22,13 @@ which anomaly mode records), and whether it ran in the forward, the
 backward or a checkpoint's recompute.  The counter's fold weights are
 applied, so ``dots_total`` equals the record's
 ``hlo_dot_flops_per_device``.
+
+``--collectives`` adds the rank's collective bytes by kind, result
+shape, model-code frame, phase and the frame of the sharding layer
+(``models/partitioning.py``) that issued it — for a collective of
+autograd's own backward (a redistribution's, say), the frame whose
+forward made the node.  ``collectives_total`` equals the record's
+``collective_bytes_per_device``.
 """
 from __future__ import annotations
 
@@ -117,6 +125,8 @@ def _peak_counter(base):
 #: the model code's frames: a product is told by the innermost of them
 _MODEL_CODE = re.compile(
     r"repro_torch[/\\](models|train)[/\\](?!partitioning)")
+#: the sharding layer's frames: a collective is told by the innermost
+_SHARDING_CODE = re.compile(r"repro_torch[/\\]models[/\\]partitioning\.py$")
 _STACK_LINE = re.compile(r'File "([^"]+)", line (\d+), in (\S+)')
 
 
@@ -138,15 +148,39 @@ def _where(path: str, line: int, func: str) -> str:
     return f"{cut}:{line} {func}"
 
 
-def _node_frame(node) -> str:
-    """The model-code frame that made autograd ``node`` (anomaly mode's
-    record of its forward stack), else the node's name."""
+def _node_frame(node, code=_MODEL_CODE) -> str | None:
+    """The innermost frame of ``code`` (the model code's by default) in
+    the forward stack that made autograd ``node`` (anomaly mode's
+    record), with the node's name; None if there is none."""
     for line in reversed(node.metadata.get("traceback_", [])):
         m = _STACK_LINE.search(line)
-        if m and _MODEL_CODE.search(m.group(1)):
+        if m and code.search(m.group(1)):
             return (f"{_where(m.group(1), int(m.group(2)), m.group(3))} "
                     f"({node.name()})")
-    return node.name()
+    return None
+
+
+def _frames():
+    """(forward, backward or recompute; the innermost model-code frame;
+    the innermost sharding-layer frame, or None) of the op running now.
+    Autograd's own backward runs under the frame that called it (the
+    train step's), not under the model code: an op of it takes the
+    frames of the forward that made its node."""
+    where, recompute = _frame_here()
+    node = torch._C._current_autograd_node()
+    phase = ("forward" if node is None else
+             "recompute" if recompute else "backward")
+    f, site = sys._getframe(1), None
+    while f is not None and site is None:
+        if _SHARDING_CODE.search(f.f_code.co_filename):
+            site = _where(f.f_code.co_filename, f.f_lineno,
+                          f.f_code.co_qualname)
+        f = f.f_back
+    if phase == "backward":
+        if where is None or "/models/" not in where:
+            where = _node_frame(node) or node.name()
+        site = site or _node_frame(node, _SHARDING_CODE)
+    return phase, where or "?", site or "-"
 
 
 def _dots_counter(base):
@@ -160,22 +194,34 @@ def _dots_counter(base):
 
         def _on_dot(self, packet, args, flops):
             super()._on_dot(packet, args, flops)
-            where, recompute = _frame_here()
-            node = torch._C._current_autograd_node()
-            phase = ("forward" if node is None else
-                     "recompute" if recompute else "backward")
-            # autograd's own backward runs under the frame that called
-            # it (the train step's), not under the model code
-            if node is not None and phase == "backward" and (
-                    where is None or "/models/" not in where):
-                where = _node_frame(node)
+            phase, where, _ = _frames()
             shapes = " x ".join(
                 f"{str(a.dtype)[6:]}{list(a.shape)}" for a in args
                 if isinstance(a, torch.Tensor))
             self.by_dot[(phase, str(packet).replace("aten.", ""), shapes,
-                         where or "?")] += flops
+                         where)] += flops
 
     return DotsCounter
+
+
+def _collectives_counter(base):
+    """An ``OpCounter`` (``base``) that also sums its weighted collective
+    bytes by (phase, kind, result, model-code frame, the sharding
+    layer's frame that issued it)."""
+
+    class CollectivesCounter(base):
+        def __init__(self, fold: bool = False):
+            super().__init__(fold=fold)
+            self.by_collective: collections.Counter = collections.Counter()
+
+        def _on_collective(self, kind, result, nbytes):
+            super()._on_collective(kind, result, nbytes)
+            phase, where, site = _frames()
+            self.by_collective[(phase, kind, f"{str(result.dtype)[6:]}"
+                                f"{list(result.shape)}", where,
+                                site)] += nbytes
+
+    return CollectivesCounter
 
 
 def main(argv=None) -> int:
@@ -196,8 +242,12 @@ def main(argv=None) -> int:
                     help="what holds the bytes at the peak")
     ap.add_argument("--dots", action="store_true",
                     help="dot FLOPs by product, shapes, frame and phase")
+    ap.add_argument("--collectives", action="store_true",
+                    help="collective bytes by kind, result, frame, phase "
+                         "and the sharding layer's site")
     ap.add_argument("--top", type=int, default=40,
-                    help="rows of --dots and --peak's tables")
+                    help="rows of --dots', --collectives' and --peak's "
+                         "tables")
     ap.add_argument("--reduced", action="store_true",
                     help="the architecture's reduced configuration")
     args = ap.parse_args(argv)
@@ -210,6 +260,9 @@ def main(argv=None) -> int:
         counter_cls = _peak_counter(counter_cls)
     if args.dots:
         counter_cls = _dots_counter(counter_cls)
+    if args.collectives:
+        counter_cls = _collectives_counter(counter_cls)
+    if args.dots or args.collectives:
         torch.autograd.set_detect_anomaly(True, check_nan=False)
     if counter_cls is not dryrun.OpCounter:
         trace = dryrun.trace_step
@@ -250,6 +303,13 @@ def main(argv=None) -> int:
         out["dots_total"] = total
         out["dots"] = [[flops, flops / total if total else 0.0, *key]
                        for key, flops in by_dot.most_common(args.top)]
+    if args.collectives:
+        by = kept["counter"].by_collective
+        total = sum(by.values())
+        out["collectives_total"] = total
+        out["collectives_by_site"] = [
+            [nbytes, nbytes / total if total else 0.0, *key]
+            for key, nbytes in by.most_common(args.top)]
     print(json.dumps(out))
     return 0
 

@@ -65,7 +65,8 @@ from repro_torch.models.layers import (
     unembed,
 )
 from repro_torch.models.moe import MoE, moe_apply
-from repro_torch.models.partitioning import constrain, split_heads, vocab_take
+from repro_torch.models.partitioning import (constrain, hold, last_logsumexp,
+                                              split_heads, vocab_take)
 
 
 # ---------------------------------------------------------------------------
@@ -597,7 +598,7 @@ def _chunk_nll(xc, lc, w, tied: bool, cap):
     the mask zeroes those terms."""
     logits = constrain(xc @ (w.T if tied else w), ("batch", None, "model"))
     logits = softcap(logits.float(), cap)
-    lse = torch.logsumexp(logits, dim=-1)
+    lse = last_logsumexp(logits)
     gold = vocab_take(logits, lc.clamp(min=0).long(), -1,
                       lambda t, i: t.gather(-1, i[..., None])[..., 0])
     mask = (lc >= 0).float()
@@ -625,6 +626,8 @@ def loss_fn(model: Model, batch: dict, q_chunk: int = 1024,
 
     x, aux, w = in_view(model, compute_params(model, cfg.activation_dtype),
                         body)
+    if tied:   # the head's gradient reduced to the table's placements
+        w = hold(w)   # before the embedding's is added to it
     # the chunks slice the sequence: keep it whole on every rank
     x = constrain(x, ("batch", None, None))
     labels = batch["labels"]

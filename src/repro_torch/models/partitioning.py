@@ -267,13 +267,32 @@ def constrain(x, dims, free: bool = False):
     return _Constrain.apply(x, spec) if _pinnable(x) else _pin(x, spec)
 
 
+class _Moved(torch.autograd.Function):
+    """``x`` redistributed to ``want``, its gradient brought back to
+    ``x``'s own placements (a pending sum replicated) in
+    ``_reduce_placed``'s order: DTensor's own backward hands a pending
+    sum over two batch axes to one redistribution."""
+
+    @staticmethod
+    def forward(ctx, x, want):
+        ctx.have = tuple(Replicate() if p.is_partial() else p
+                         for p in x.placements)
+        return x.redistribute(x.device_mesh, want)
+
+    @staticmethod
+    def backward(ctx, g):
+        if isinstance(g, DTensor):
+            g = _reduce_placed(g, ctx.have)
+        return g, None
+
+
 def gather(x, dims):
     """``x`` on the placements of logical ``dims`` (a DTensor under a
-    policy; else ``x``) by a plain redistribution: its gradient goes
-    back to ``x``'s own placements (a pending sum reduce-scattered),
-    where ``constrain`` would pin it at ``dims``.  The MoE gathers its
-    expert slots over the batch axes so for the expert products, and
-    each rank keeps the gradient of its own rows' slots only."""
+    policy; else ``x``): its gradient goes back to ``x``'s own
+    placements (a pending sum reduce-scattered, ``_Moved``), where
+    ``constrain`` would pin it at ``dims``.  The MoE gathers its expert
+    slots over the batch axes so for the expert products, and each rank
+    keeps the gradient of its own rows' slots only."""
     pol = get_policy()
     if pol is None or not isinstance(x, DTensor):
         return x
@@ -281,7 +300,7 @@ def gather(x, dims):
                          x.device_mesh.mesh_dim_names)
     if tuple(want) == tuple(x.placements):
         return x
-    return x.redistribute(x.device_mesh, want)
+    return _Moved.apply(x, tuple(want))
 
 
 def _split_along(x, dim: int) -> bool:
@@ -303,6 +322,28 @@ def last_mean(x):
     if want != list(s.placements):
         s = s.redistribute(s.device_mesh, want)
     return s / x.shape[-1]
+
+
+def last_logsumexp(x):
+    """``torch.logsumexp(x, -1)``.  Where ``x`` is a DTensor split along
+    its last dim over several ranks (the loss's logits, the vocabulary
+    over "model"), each rank reduces its own slice: the ranks' maxima
+    and then their sums of exponentials are all-reduced at the size of
+    the result, as XLA does.  DTensor's own ``logsumexp`` gathers every
+    rank's logits whole along the vocabulary first (and again in the
+    loss chunk's recompute).  On one rank it is torch's own, as in the
+    plain step that the dry run's one-rank prediction is held against."""
+    if not isinstance(x, DTensor) or math.prod(
+            x.device_mesh.size(i) for i in _vocab_slice(x, -1)[0]) == 1:
+        return torch.logsumexp(x, -1)
+
+    def replicated(t):
+        return t.redistribute(t.device_mesh, [
+            Replicate() if p.is_partial() else p for p in t.placements])
+
+    m = replicated(x.detach().amax(-1, keepdim=True))
+    m = torch.where(m.isfinite(), m, 0)
+    return replicated((x - m).exp().sum(-1)).log() + m.squeeze(-1)
 
 
 def row_mean(x, dims: tuple):
@@ -582,8 +623,8 @@ def vocab_take(src, index, dim: int, take):
 
     mesh = src.device_mesh
     if dim == 0:          # a table: whole along its width on every rank
-        src = src.redistribute(mesh, [p if i in split else Replicate()
-                                      for i, p in enumerate(src.placements)])
+        src = _Moved.apply(src, tuple(p if i in split else Replicate()
+                                      for i, p in enumerate(src.placements)))
     if not isinstance(index, DTensor):
         index = DTensor.from_local(index, mesh, [Replicate()] * mesh.ndim)
     idx_p = [Replicate() if i in split else p
@@ -802,18 +843,26 @@ def _reduce_placed(g: DTensor, want: tuple) -> DTensor:
     """``g`` on ``want`` by the collectives that move the fewest bytes:
     first every step that shrinks the local tensor (a pending sum
     reduce-scattered into a ``Shard``, a replicated dim split locally),
-    then the pending sums that ``want`` replicates (all-reduced at that
-    smaller size), last the gathers (a ``Shard`` that ``want`` places
-    otherwise).  DTensor's own order gathers first where one call holds
-    both."""
+    one mesh dim a step in the mesh's order, then the pending sums that
+    ``want`` replicates (all-reduced at that smaller size), last the
+    gathers (a ``Shard`` that ``want`` places otherwise).
+
+    One mesh dim a step: handed a pending sum over ("pod", "data") into
+    a dim split over both, DTensor all-reduces the whole tensor over one
+    axis before it reduce-scatters over the other, where two
+    reduce-scatters do.  In the mesh's order, as DTensor splits a dim
+    over several mesh dims: outermost first.  A step into a dim that an
+    inner mesh dim already splits gathers that split and splits it
+    again; no parameter, gradient or ``constrain`` of the ten models
+    takes one (it needs a dim split over all three axes)."""
     have = tuple(g.placements)
     if have == want:
         return g
     mesh = g.device_mesh
-    shrink = tuple(w if isinstance(w, Shard) and not isinstance(h, Shard)
-                   else h for h, w in zip(have, want))
-    if shrink != have:
-        g = g.redistribute(mesh, shrink)
+    for i, (h, w) in enumerate(zip(have, want)):
+        if isinstance(w, Shard) and not isinstance(h, Shard):
+            g = g.redistribute(mesh, [w if j == i else p
+                                      for j, p in enumerate(g.placements)])
     reduced = tuple(w if h.is_partial() else h
                     for h, w in zip(g.placements, want))
     if reduced != tuple(g.placements):

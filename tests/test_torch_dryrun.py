@@ -111,6 +111,16 @@ for arch, dims in port["reduced"]:
         jfn, args = DR.build_cell(cfg, shape, m)
         text = jfn.lower(*args).compile().as_text()
     out["reduced"][f"{arch}|{dims}"] = hlo_parse.analyze(text)["dot_flops"]
+out["cube"] = {}
+for arch in port["cube"]:
+    cfg = get_reduced(arch)
+    m = DR.effective_mesh(cfg, Mesh(np.array(jax.devices()[:8]).reshape(
+        2, 2, 2), ("pod", "data", "model")))
+    with PT.apply_policy(PT.Policy(m, batch_axes(m))):
+        jfn, args = DR.build_cell(cfg, ShapeSpec("train_4k", 64, 8, "train"),
+                                  m)
+        text = jfn.lower(*args).compile().as_text()
+    out["cube"][arch] = hlo_parse.analyze(text)["collective_bytes_total"]
 print("REF" + json.dumps(out))
 """
 
@@ -181,6 +191,43 @@ print("MOE" + json.dumps({
 """
 MOE_CELL = ("deepseek-moe-16b", (2, 4))
 
+#: reduced train cells (batch 8 × 64) on a fake world of 8, a 2×2×2
+#: ("pod", "data", "model") mesh: (collective bytes a device at most, dot
+#: FLOPs, peak bytes), on a CPU, torch 2.13.  The bound is each cell's
+#: figure with only its pending sums over ("pod", "data") reduced one
+#: axis at a time; with DTensor's one-call reductions they read 2,972,736
+#: and 9,721,024.  With the loss's logsumexp gathering the vocabulary
+#: whole, the peaks read 1,999,872 and 4,788,736 B.
+CUBE = {"gemma-2b": (2_729_024, 50_872_320, 1_608_704),
+        "deepseek-moe-16b": (7_613_632, 200_867_840, 4_397_568)}
+#: their collective bytes against the reference's compile of the same
+#: cell on 8 host devices (XLA all-reduces what the port reduce-scatters:
+#: totals compare, kinds do not)
+CUBE_FACTOR = 1.10
+
+#: ``_reduce_placed``'s collectives for the pending sums over
+#: ("pod", "data") into a dim split over both
+REDUCTION_COUNTS = {"P P S2 -> S1 S1 S2": {"reduce-scatter": 2},
+                    "P P S0 -> S1 S1 S0": {"reduce-scatter": 2},
+                    "P P S1 -> S1 S1 S1": {"all-gather": 2,
+                                           "reduce-scatter": 2}}
+
+#: ``dryrun.reduction_collectives`` and the ``CUBE`` cells, one process
+#: (one fake world at a time)
+PORT_CUBE = """
+import json, sys
+from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.launch import dryrun as D
+out = {"reductions": D.reduction_collectives(device="cpu"), "cells": {}}
+for arch in json.loads(sys.argv[1]):
+    r = D.run_cell(arch, "train_4k", device="cpu", mesh_shape=(2, 2, 2),
+                   shape=ShapeSpec("train_4k", 64, 8, "train"), reduced=True)
+    out["cells"][arch] = {k: r[k] for k in (
+        "collective_bytes_per_device", "hlo_dot_flops_per_device",
+        "bytes_per_device", "logical_mesh")}
+print("CUBE" + json.dumps(out))
+"""
+
 
 def _env():
     env = dict(os.environ)
@@ -202,11 +249,15 @@ def port_subprocesses():
              json.dumps(MOE_CELL)],
             env=_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
             text=True),
+        "cube": subprocess.Popen(
+            [sys.executable, "-c", textwrap.dedent(PORT_CUBE),
+             json.dumps(list(CUBE))], env=_env(), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True),
         "dots": subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.trace_profile",
              "--arch", "gemma-2b", "--shape", "train_4k", "--reduced",
              "--mesh", "2x2", "--batch", "8", "--seq-len", "64", "--device",
-             "cpu", "--dots", "--top", "1000"], env=_env(),
+             "cpu", "--dots", "--collectives", "--top", "1000"], env=_env(),
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)}
     yield procs
     for proc in procs.values():
@@ -220,7 +271,8 @@ def reference():
     port = {"vpu": A.VPU_OPS, "hbm": A.HBM_BW,
             "bw": A.NVLINK_LINKS * A.NVLINK_BW, "lat": A.NVLINK_LATENCY,
             "ks": GEO_K, "reduced": [[arch, list(dims)]
-                                     for arch, dims in REDUCED]}
+                                     for arch, dims in REDUCED],
+            "cube": list(CUBE)}
     proc = subprocess.run(
         [sys.executable, "-c", textwrap.dedent(REFERENCE), json.dumps(port)],
         env=_env(), capture_output=True, text=True, timeout=300)
@@ -421,6 +473,27 @@ def test_trace_profile_dots_sum_to_the_records_dot_flops(port_subprocesses):
     assert "?" not in {r[5] for r in rows}
 
 
+def test_trace_profile_collectives_sum_to_the_records_bytes(
+        port_subprocesses):
+    """``trace_profile --collectives``: every collective's weighted
+    bytes, by phase, kind, result, model-code frame and the sharding
+    layer's frame that issued it, sum to the record's
+    ``collective_bytes_per_device`` and, by kind, to its
+    ``collectives``; the gradients' reductions are told by
+    ``_reduce_placed``'s frame."""
+    out = json.loads(_finished(port_subprocesses, "dots").splitlines()[-1])
+    rows = out["collectives_by_site"]
+    assert out["collectives_total"] == out["collective_bytes_per_device"] > 0
+    assert sum(r[0] for r in rows) == out["collectives_total"]
+    by_kind: dict = {}
+    for r in rows:
+        by_kind[r[3]] = by_kind.get(r[3], 0) + r[0]
+    assert by_kind == pytest.approx(out["collectives"], rel=1e-12)
+    assert {r[2] for r in rows} <= {"forward", "backward", "recompute"}
+    assert any("partitioning.py" in r[6] and "_reduce_placed" in r[6]
+               for r in rows if r[2] == "backward")
+
+
 @pytest.fixture(scope="module")
 def moe_trace(port_subprocesses):
     stdout = _finished(port_subprocesses, "reduced")
@@ -462,6 +535,53 @@ def test_the_sharded_moe_routes_and_combines_each_ranks_own_rows(moe_trace):
     for kind, shape in moe_trace["made"]:
         if shape and shape[-1] == d:
             assert math.prod(shape[:-1]) not in whole, (kind, shape)
+
+
+@pytest.fixture(scope="module")
+def cube(port_subprocesses):
+    stdout = _finished(port_subprocesses, "cube")
+    line = [ln for ln in stdout.splitlines() if ln.startswith("CUBE")]
+    return json.loads(line[-1][4:])
+
+
+@pytest.mark.parametrize("have,want", D.REDUCTIONS)
+def test_a_pending_sum_is_reduced_one_mesh_axis_at_a_time(cube, have, want):
+    """``partitioning._reduce_placed`` on a 2×2×2 fake world: no
+    all-reduce unless ``want`` replicates a mesh dim whose sum is
+    pending, and no more collective bytes than one redistribution a mesh
+    dim in mesh order.  A pending sum over ("pod", "data") into a dim
+    split over both takes two reduce-scatters, where DTensor's one call
+    all-reduces the whole tensor over one axis first (32,768 B and a
+    reduce-scatter of 8,192 against 12,288).  Into a dim split over all
+    three axes that "model" already splits, each step gathers and splits
+    again (73,728 B against 114,688 in one call); no model's reduction
+    takes that case."""
+    row = cube["reductions"][f"{have} -> {want}"]
+    placed = row["placed"]
+    pending = any(h == "P" and w == "R"
+                  for h, w in zip(have.split(), want.split()))
+    assert pending or "all-reduce" not in placed["counts"], placed
+    assert sum(placed["bytes"].values()) <= \
+        sum(row["by_axis"]["bytes"].values()), row
+    if f"{have} -> {want}" in REDUCTION_COUNTS:
+        assert placed["counts"] == REDUCTION_COUNTS[f"{have} -> {want}"]
+
+
+@pytest.mark.parametrize("arch", list(CUBE))
+def test_reduced_cells_on_a_2x2x2_world(cube, reference, arch):
+    """Reduced gemma-2b and deepseek-moe-16b × train_4k (8 × 64) on a
+    fake world of 8, a 2×2×2 mesh: collective bytes a device at most
+    ``CUBE``'s, dot FLOPs and peak bytes exactly its, and collective
+    bytes within ``CUBE_FACTOR`` of the reference's compile of the same
+    cell."""
+    r = cube["cells"][arch]
+    most, flops, peak = CUBE[arch]
+    assert r["logical_mesh"] == "2x2x2"
+    assert r["collective_bytes_per_device"] <= most
+    assert r["hlo_dot_flops_per_device"] == flops
+    assert r["bytes_per_device"] == peak
+    ratio = r["collective_bytes_per_device"] / reference["cube"][arch]
+    assert 1 / CUBE_FACTOR <= ratio <= CUBE_FACTOR, ratio
 
 
 class _HandBack(torch.autograd.Function):

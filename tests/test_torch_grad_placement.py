@@ -39,6 +39,18 @@ the MoE by 1.01e-6 of its largest element), so their sharded ones are
 held against the float64 step instead (measured for zamba2-7b: at most 2.3
 times as far as the one-rank float32 gradient, on a CPU, torch 2.13).
 The losses are held alike.
+
+On eight gloo ranks (a 2×2×2 mesh ("pod", "data", "model"), spawned
+apart from the four) the MLP and reduced deepseek-moe-16b take the
+same step, their pending sums over ("pod", "data") reduced one mesh
+axis at a time (``partitioning._reduce_placed``; "model" of 2, since
+with one rank
+along it DTensor's one-call reduction already takes two
+reduce-scatters): each rank's shards are held alike.  There each rank
+also reduces a float64 pending sum for every case of
+``dryrun.REDUCTIONS`` by ``_reduce_placed`` and by DTensor's
+redistribution in one call: the shards agree up to the order of the
+sums.
 """
 import json
 import os
@@ -71,6 +83,11 @@ MOE_CASES = [("deepseek-moe-16b", 1), ("deepseek-moe-16b", 2),
 RANK_CASES = [(name, accum) for name in ("mlp", "gemma-2b", "zamba2-7b")
               for accum in (1, 2)] + [("gemma-2b-3-heads", 1),
                                       ("xlstm-350m-2-heads", 1)] + MOE_CASES
+#: the cases of the eight-rank run (``torch_grad_placement_ranks.CASES_8``)
+RANK_CASES_8 = [("mlp", 1), ("deepseek-moe-16b", 1)]
+#: a ``_reduce_placed`` shard against DTensor's one-call redistribution,
+#: as a share of its largest element (float64 sums in another order)
+REDUCTION_TOL = 1e-14
 #: a MoE case's smallest gap between a token's k-th and (k+1)-th router
 #: probability: above it, no float32 rounding flips a top-k choice
 ROUTING_MARGIN = 1e-5
@@ -113,14 +130,20 @@ def _one_torch_thread():
 
 @pytest.fixture(scope="module", autouse=True)
 def subprocesses(tmp_path_factory):
-    """The four gloo ranks and one dry-run CLI cell, started with the
-    module so that they run beside its other tests."""
+    """The four gloo ranks, the eight, and one dry-run CLI cell, started
+    with the module so that they run beside its other tests."""
     tmp = tmp_path_factory.mktemp("grad_placement")
+    (tmp / "eight").mkdir()
     procs = {
         "ranks": subprocess.Popen(
             [sys.executable, str(REPO / "tests" /
                                  "torch_grad_placement_ranks.py"),
              str(tmp)], env=_env(), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True),
+        "ranks_8": subprocess.Popen(
+            [sys.executable, str(REPO / "tests" /
+                                 "torch_grad_placement_ranks.py"),
+             str(tmp / "eight"), "8"], env=_env(), stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True),
         "cli": subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
@@ -245,12 +268,10 @@ def test_the_hooks_go_when_the_block_raises(mesh24):
     assert any(q.is_partial() for q in g.placements)
 
 
-@pytest.fixture(scope="module")
-def rank_results(subprocesses):
-    tmp = _finished(subprocesses, "ranks")
+def _load(tmp, cases, ranks: int) -> dict:
     out = {}
-    for name, accum in RANK_CASES:
-        for rank in range(4):
+    for name, accum in cases:
+        for rank in range(ranks):
             res = np.load(tmp / f"{name}-{accum}-{rank}.npy",
                           allow_pickle=True).item()
             assert "error" not in res, (name, accum, rank, res.get("error"))
@@ -258,20 +279,43 @@ def rank_results(subprocesses):
     return out
 
 
-@pytest.mark.parametrize("name,accum", RANK_CASES)
-def test_the_sharded_loss_equals_the_one_rank_loss_on_four_gloo_ranks(
-        rank_results, name, accum):
+@pytest.fixture(scope="module")
+def rank_results(subprocesses):
+    return _load(_finished(subprocesses, "ranks"), RANK_CASES, 4)
+
+
+@pytest.fixture(scope="module")
+def rank_results_8(subprocesses):
+    return _load(_finished(subprocesses, "ranks_8") / "eight",
+                 RANK_CASES_8 + [("reductions", 0)], 8)
+
+
+def _check_loss(results, name, accum, ranks: int):
     """Every rank's loss equals the one-rank step's within ``LOSS_TOL`` of
     it, and lies at most ``ROUNDING`` times as far from the float64
     step's loss as the one-rank float32 loss does (or as ``LOSS_TOL``)."""
-    for rank in range(4):
-        r = rank_results[(name, accum, rank)]
+    for rank in range(ranks):
+        r = results[(name, accum, rank)]
         one, wide = r["loss_one_rank"], r["loss_float64"]
         assert abs(r["loss"] - one) <= LOSS_TOL * abs(one), (rank, r["loss"],
                                                              one)
         bound = max(abs(one - wide), LOSS_TOL * abs(wide))
         assert abs(r["loss"] - wide) <= ROUNDING * bound, (rank, r["loss"],
                                                            wide)
+
+
+@pytest.mark.parametrize("name,accum", RANK_CASES)
+def test_the_sharded_loss_equals_the_one_rank_loss_on_four_gloo_ranks(
+        rank_results, name, accum):
+    """``_check_loss`` on the four ranks."""
+    _check_loss(rank_results, name, accum, 4)
+
+
+@pytest.mark.parametrize("name,accum", RANK_CASES_8)
+def test_the_sharded_loss_equals_the_one_rank_loss_on_eight_gloo_ranks(
+        rank_results_8, name, accum):
+    """``_check_loss`` on the eight ranks of the 2×2×2 mesh."""
+    _check_loss(rank_results_8, name, accum, 8)
 
 
 @pytest.mark.parametrize("name,accum", MOE_CASES)
@@ -285,9 +329,45 @@ def test_no_moe_case_routes_a_near_tie(rank_results, name, accum):
         assert margin > ROUTING_MARGIN, (rank, margin)
 
 
+def test_no_moe_case_routes_a_near_tie_on_eight_gloo_ranks(rank_results_8):
+    """The same margin for the eight ranks' MoE case."""
+    for rank in range(8):
+        margin = rank_results_8[("deepseek-moe-16b", 1, rank)][
+            "routing_margin"]
+        assert margin > ROUTING_MARGIN, (rank, margin)
+
+
 @pytest.mark.parametrize("name,accum", RANK_CASES)
 def test_the_sharded_step_equals_the_one_rank_step_on_four_gloo_ranks(
         rank_results, name, accum):
+    """``_check_step`` on the four ranks."""
+    _check_step(rank_results, name, accum, 4)
+
+
+@pytest.mark.parametrize("name,accum", RANK_CASES_8)
+def test_the_sharded_step_equals_the_one_rank_step_on_eight_gloo_ranks(
+        rank_results_8, name, accum):
+    """``_check_step`` on the eight ranks of the 2×2×2 mesh, where a
+    pending sum over ("pod", "data") reaches the gradients' reductions."""
+    _check_step(rank_results_8, name, accum, 8)
+
+
+@pytest.mark.parametrize("case", [f"{h} -> {w}" for h, w in
+                                  D.REDUCTIONS])
+def test_the_reduction_one_axis_at_a_time_equals_dtensors_on_real_values(
+        rank_results_8, case):
+    """On every rank, ``_reduce_placed``'s shard equals the shard that
+    DTensor's redistribution in one call leaves, within
+    ``REDUCTION_TOL`` of its largest element (float64; the sums run in
+    another order)."""
+    for rank in range(8):
+        placed, one_call = rank_results_8[("reductions", 0, rank)][case]
+        assert placed.shape == one_call.shape, (rank, placed.shape)
+        err = np.abs(placed - one_call).max()
+        assert err <= REDUCTION_TOL * np.abs(one_call).max(), (rank, err)
+
+
+def _check_step(results, name, accum, ranks: int):
     """Each rank's gradient shard is on its parameter's placements and
     equals the one-rank gradient's within ``GRAD_TOL`` of its largest
     element, in a case whose one-rank float32 gradients are all that
@@ -302,11 +382,11 @@ def test_the_sharded_step_equals_the_one_rank_step_on_four_gloo_ranks(
     AdamW step taken on the sharded step's own gradients, gathered whole,
     within ``PARAM_TOL``."""
     exact = all(d["grad_rounding"] <= GRAD_TOL * d["grad_max"]
-                for d in rank_results[(name, accum, 0)]["params"].values())
+                for d in results[(name, accum, 0)]["params"].values())
     assert exact == ((name, accum) not in ROUNDED)
-    for rank in range(4):
-        for pname, d in rank_results[(name, accum, rank)]["params"].items():
-            tag = (name, accum, rank, pname)
+    for rank in range(ranks):
+        for pname, d in results[(name, accum, rank)]["params"].items():
+            tag = (name, accum, ranks, rank, pname)
             assert d["is_dtensor"], tag
             assert d["grad_placements"] == d["param_placements"], tag
             assert "Partial" not in "".join(d["grad_placements"]), tag

@@ -1,16 +1,20 @@
 """The rank side of ``tests/test_torch_grad_placement.py``, run as
-``python tests/torch_grad_placement_ranks.py OUT_DIR`` beside the
-module's other tests.  Four spawned processes each join a gloo group
-through a ``FileStore``, make a 2×2 mesh ("data", "model") (1×4 for a
-case of ``MESHES``) and run
+``python tests/torch_grad_placement_ranks.py OUT_DIR [8]`` beside the
+module's other tests.  Four spawned processes (eight with ``8``) each
+join a gloo group through a ``FileStore``, make a 2×2 mesh ("data",
+"model") (1×4 for a case of ``MESHES``; a 2×2×2 mesh ("pod", "data",
+"model") on eight) and run
 each case's train step twice from the same seed: on plain tensors
 without a policy (the one-rank step), and on DTensor parameters under
 the activation policy; and once more on plain tensors in float64 (the
 witness that a float32 gradient's error is its rounding).  Each saves,
 for every parameter, its local shard of the gradient that AdamW was
 handed and of the updated parameter, beside the same shards cut from
-the one-rank steps'.  It imports torch and ``repro_torch`` only, so the
-ranks start without JAX.
+the one-rank steps'.  On eight ranks, each also reduces a float64
+pending sum for every case of ``dryrun.REDUCTIONS`` by
+``partitioning._reduce_placed`` and by DTensor's redistribution in one
+call, and saves both shards.  It imports torch and ``repro_torch``
+only, so the ranks start without JAX.
 """
 import contextlib
 import copy
@@ -27,8 +31,9 @@ from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.configs import registry
 from repro_torch.core.distributed import file_group
+from repro_torch.launch import dryrun as DRY
 from repro_torch.launch import sharding as SH
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import batch_axes, make_host_mesh
 from repro_torch.models import model as MDL
 from repro_torch.models import moe as MOE
 from repro_torch.models import partitioning as PT
@@ -41,11 +46,16 @@ D, F, ROWS = 16, 64, 8
 class MLP(nn.Module):
     """A column- then row-parallel MLP block with a replicated scale:
     w1 (D, F) columns over "model", w2 (F, D) rows over "model", each
-    also split over "data" on its other dim (FSDP)."""
+    also split over the batch axes on its other dim (FSDP)."""
 
-    PLACEMENTS = {"scale": (Replicate(), Replicate()),
-                  "w1": (Shard(0), Shard(1)),
-                  "w2": (Shard(1), Shard(0))}
+    @staticmethod
+    def placements(mesh) -> dict:
+        """Each parameter's placements on ``mesh``, whose last dim is
+        "model" and whose others are batch axes."""
+        fsdp = mesh.ndim - 1
+        return {"scale": (Replicate(),) * mesh.ndim,
+                "w1": (Shard(0),) * fsdp + (Shard(1),),
+                "w2": (Shard(1),) * fsdp + (Shard(0),)}
 
     def __init__(self, gen: torch.Generator):
         super().__init__()
@@ -138,12 +148,12 @@ def _float64(model: nn.Module) -> nn.Module:
     return out
 
 
-def _mlp_case(gen):
+def _mlp_case(gen, mesh):
     model = MLP(gen)
     batch = {"x": torch.randn(ROWS, D, generator=gen),
              "y": torch.randn(ROWS, D, generator=gen)}
-    return model, batch, dict(MLP.PLACEMENTS), {"x": (Shard(0), Replicate()),
-                                                "y": (Shard(0), Replicate())}
+    rows = (Shard(0),) * (mesh.ndim - 1) + (Replicate(),)
+    return model, batch, MLP.placements(mesh), {"x": rows, "y": rows}
 
 
 #: a case's configuration where it is not its architecture's reduced
@@ -218,7 +228,8 @@ def run_case(name: str, accum: int, mesh) -> dict:
     k-th and (k+1)-th router probability."""
     gen = torch.Generator().manual_seed(0)
     model, batch, placements, bplacements = (
-        _mlp_case(gen) if name == "mlp" else _lm_case(name, gen, mesh))
+        _mlp_case(gen, mesh) if name == "mlp" else
+        _lm_case(name, gen, mesh))
     sharded, replay = copy.deepcopy(model), copy.deepcopy(model)
     wide = _float64(model)
     loss = loss_of(mlp_loss) if name == "mlp" else contextlib.nullcontext()
@@ -233,7 +244,7 @@ def run_case(name: str, accum: int, mesh) -> dict:
         dbatch = {k: distribute_tensor(v, mesh, list(bplacements[k]),
                                        src_data_rank=None)
                   for k, v in batch.items()}
-        policy = PT.Policy(mesh, ("data",))
+        policy = PT.Policy(mesh, batch_axes(mesh))
         with implicit_replication(), PT.apply_policy(policy):
             grads, loss = _step(sharded, dbatch, accum)
     whole = {n: g.full_tensor() for n, g in grads.items()}
@@ -266,18 +277,46 @@ def run_case(name: str, accum: int, mesh) -> dict:
     return out
 
 
+def run_reductions(mesh) -> dict:
+    """``{"have -> want": (this rank's shard by ``_reduce_placed``, by
+    DTensor's redistribution in one call)}`` for every case of
+    ``dryrun.REDUCTIONS``: a float64 (16, 16, 16) local tensor a rank,
+    the same on the ranks that a replicated mesh dim joins."""
+    coord = mesh.get_coordinate()
+    out = {}
+    for k, (have, want) in enumerate(DRY.REDUCTIONS):
+        placed, wanted = DRY._placements(have), DRY._placements(want)
+        seed = [k] + [0 if isinstance(p, Replicate) else c
+                      for p, c in zip(placed, coord)]
+        gen = torch.Generator().manual_seed(int("".join(map(str, seed))))
+        local = torch.randn(16, 16, 16, generator=gen, dtype=torch.float64)
+        x = DTensor.from_local(local, mesh, placed, run_check=False)
+        out[f"{have} -> {want}"] = (
+            PT._reduce_placed(x, wanted).to_local().numpy(),
+            x.redistribute(mesh, wanted).to_local().numpy())
+    return out
+
+
 def run_cases(rank: int, world: int, store: str, cases: list,
               out_dir: str) -> None:
     """``torch.multiprocessing.spawn`` target: every (name, accum) case,
     in order, a ``.npy`` pickle a case and rank (an error's text if the
-    case raised)."""
+    case raised); on eight ranks the reductions' case first."""
     torch.set_num_threads(1)
     with file_group(store, rank, world):
-        meshes = {dims: make_host_mesh(dims, ("data", "model"), "cpu")
-                  for dims in {(2, 2), *MESHES.values()}}
+        if world == 8:
+            cube = make_host_mesh((2, 2, 2), ("pod", "data", "model"), "cpu")
+            meshes = {None: cube}
+            cases = [("reductions", 0)] + cases
+        else:
+            meshes = {dims: make_host_mesh(dims, ("data", "model"), "cpu")
+                      for dims in {(2, 2), *MESHES.values()}}
+            meshes[None] = meshes[(2, 2)]
         for name, accum in cases:
+            mesh = meshes.get(MESHES.get(name), meshes[None])
             try:
-                res = run_case(name, accum, meshes[MESHES.get(name, (2, 2))])
+                res = (run_reductions(mesh) if name == "reductions" else
+                       run_case(name, accum, mesh))
             except Exception as e:  # noqa: BLE001
                 res = {"error": f"{type(e).__name__}: {e}"[:3000]}
             np.save(f"{out_dir}/{name}-{accum}-{rank}.npy",
@@ -292,8 +331,14 @@ CASES = [(name, accum) for name in ("mlp", "gemma-2b", "zamba2-7b")
          for accum in (1, 2)] + [(name, 1) for name in VARIANTS] + [
              ("deepseek-moe-16b", 1), ("deepseek-moe-16b", 2),
              ("arctic-480b", 1)]
+#: on eight ranks, a 2×2×2 mesh: pending sums over ("pod", "data")
+#: reduced into dims split over both (the MLP's FSDP gradients, the MoE's
+#: slots, the embedding table's)
+CASES_8 = [("mlp", 1), ("deepseek-moe-16b", 1)]
 
 if __name__ == "__main__":
     out_dir = sys.argv[1]
-    mp.spawn(run_cases, args=(4, f"{out_dir}/store", CASES, out_dir),
-             nprocs=4, join=True)
+    world = int(sys.argv[2]) if len(sys.argv) > 2 else 4
+    mp.spawn(run_cases, args=(world, f"{out_dir}/store",
+                              CASES_8 if world == 8 else CASES, out_dir),
+             nprocs=world, join=True)
